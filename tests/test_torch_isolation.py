@@ -1,0 +1,57 @@
+"""The port stands alone: importing every module of
+``videoprocessingframework_torch`` (and what chip_smoke.py imports) pulls
+in neither JAX nor the JAX package. Checked in a fresh interpreter."""
+
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import ast, importlib, pathlib, pkgutil, sys
+import videoprocessingframework_torch as pkg
+
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())
+for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+        for a in node.names:
+            importlib.import_module(a.name)
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+        importlib.import_module(node.module)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "jaxlib")
+             or m.split(".")[0] in ("jax", "flax", "jaxlib",
+                                    "videoprocessingframework_tpu"))
+print(len(names))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    r = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr
+    n, bad = r.stdout.strip().splitlines()[-2:]
+    assert int(n) >= 15  # every module of the slice was imported
+    assert bad == "BAD []"
+
+
+def test_port_sources_name_no_jax():
+    """No source of the port (nor chip_smoke.py) imports JAX, Flax or the
+    JAX package, even on a path the import above does not reach."""
+    files = list((ROOT / "videoprocessingframework_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for f in files:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1]
+                assert mod.split(".")[0] not in (
+                    "jax", "flax", "jaxlib", "videoprocessingframework_tpu"
+                ), f"{f}: {s}"

@@ -1,0 +1,67 @@
+"""Build and bind the package's CUDA kernels.
+
+``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles every ``*.cu``
+here into one shared library with a plain C interface, loaded with
+ctypes (no PyTorch headers, so a build takes seconds). The build runs at
+first use into the gitignored ``csrc/_build/``, keyed by a content hash
+of the sources and flags. A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes as C
+import functools
+import os
+import pathlib
+import shutil
+
+from ..utils.build_cache import cached_build
+
+_HERE = pathlib.Path(__file__).parent
+OUT_DIR = _HERE / "_build"
+SOURCES = sorted(_HERE.glob("*.cu"))
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xcompiler", "-fvisibility=hidden"]
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for cand in cands:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> pathlib.Path:
+    """Compile (once per source hash) and return the library's path."""
+    compiler = nvcc()
+    return cached_build(
+        OUT_DIR, "libvpf_kernels", SOURCES,
+        lambda out: [compiler, *NVCC_FLAGS, *map(str, SOURCES), "-o",
+                     str(out)],
+        key=" ".join(NVCC_FLAGS),
+    )
+
+
+@functools.lru_cache(maxsize=1)
+def load_kernels() -> C.CDLL:
+    """The kernel library with its C signatures bound."""
+    lib = C.CDLL(str(build()))
+    p, i, i64 = C.c_void_p, C.c_int, C.c_int64
+    fn = lib.vpf_fused_resize_csc
+    fn.restype = i
+    fn.argtypes = (
+        [p, p, p, i, i, i64, i64, i64, i64]
+        + [p, p, i] * 4
+        + [p, i, i, i, C.POINTER(C.c_float), p]
+    )
+    lib.vpf_cuda_error_string.restype = C.c_char_p
+    lib.vpf_cuda_error_string.argtypes = [i]
+    return lib
+
+
+def error_string(err: int) -> str:
+    return load_kernels().vpf_cuda_error_string(err).decode()

@@ -1,0 +1,374 @@
+"""NativeDecodePool — the all-native multi-stream decode scheduler, fed
+to a CUDA device.
+
+N worker threads live entirely in C++ (io/native/pool.cpp): demux, decode
+and frame packing never touch the interpreter. Python acquires whole
+batches (zero-copy views into the pool's ring), uploads each batch with
+ONE host→device copy, runs the post-processing on the device and releases
+the ring slot once the device is done with it.
+
+Upload path (:meth:`_RingFeed.batches`): the ring slot is copied into a
+pinned staging buffer, then copied to the device with a non-blocking copy
+on a side stream, and an event is recorded after it. The consumer stream
+waits on that event before the post-processing, and a second event after
+the post-processing is the barrier before the slot (and the staging
+buffer) is reused. On the CPU the batch is copied out of the ring before
+anything else, since ``torch.from_numpy`` aliases the slot.
+"""
+
+from __future__ import annotations
+
+import ctypes as C
+import os
+from typing import Callable, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import geometry
+from ..core.enums import ColorRange, ColorSpace, PixelFormat
+from ..utils.device import resolve_device
+from ..utils.tracing import StageTimer, trace_range
+
+
+class _RingFeed:
+    """``batches()`` over a ring of host batches: one upload, one
+    post-processing call and one deferred slot release per batch.
+
+    Subclasses provide ``width``, ``height``, ``batch_size``,
+    ``plane_major``, ``frame_bytes``, ``device``, ``timer``,
+    ``_n_buffers``, ``_acquire_raw() -> (numpy uint8 view of the whole
+    slot, frame count) | (None, 0)``, ``release()`` and ``pause()``.
+    """
+
+    def _split(self, flat: torch.Tensor, n: int, cap: int):
+        """(y, u, v) or the packed (n, rows, W) batch from a flat buffer
+        laid out like a ring slot of capacity ``cap``."""
+        h, w = self.height, self.width
+        if not self.plane_major:
+            return (flat[: n * self.frame_bytes].view(n, -1, w),)
+        ysz, csz = h * w, (h // 2) * (w // 2)
+        y = flat[: n * ysz].view(n, h, w)
+        u = flat[cap * ysz: cap * ysz + n * csz].view(n, h // 2, w // 2)
+        v = flat[cap * (ysz + csz): cap * (ysz + csz) + n * csz]
+        return y, u, v.view(n, h // 2, w // 2)
+
+    def _upload(self, slot: np.ndarray, n: int, staging: dict):
+        """One batch onto the device as plane tensors. On CUDA: slot →
+        pinned staging buffer → one non-blocking H2D copy on the stage's
+        side stream, which the current stream then waits for; the stage's
+        ``done`` event (recorded by :meth:`batches` after the
+        post-processing) guards the staging buffer's reuse."""
+        cap = self.batch_size
+        src = torch.from_numpy(slot)
+        if self.device.type == "cpu":
+            # from_numpy aliases the ring slot: copy before it is released
+            return self._split(src.clone(), n, cap)
+        buf, done = staging.get("buf"), staging.get("done")
+        if done is not None:
+            done.synchronize()  # the last H2D from this buffer is over
+        if buf is None:
+            buf = torch.empty(src.numel(), dtype=torch.uint8, pin_memory=True)
+            staging["buf"] = buf
+        buf.copy_(src)
+        dev = torch.empty(src.numel(), dtype=torch.uint8, device=self.device)
+        copy_stream = staging["stream"]
+        copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(copy_stream):
+            dev.copy_(buf, non_blocking=True)
+            uploaded = torch.cuda.Event()
+            uploaded.record(copy_stream)
+        torch.cuda.current_stream(self.device).wait_event(uploaded)
+        return self._split(dev, n, cap)
+
+    def batches(
+        self,
+        postproc: Optional[Callable] = None,
+        depth: int = 2,
+        transfer_priority: Optional[bool] = None,
+    ) -> Iterator:
+        """Yield post-processed device batches (or the device planes when
+        ``postproc`` is None): ``postproc(y, u, v)`` for plane-major
+        rings, ``postproc(packed)`` otherwise.
+
+        ``depth`` batches are kept in flight: batch *i* is uploaded and
+        dispatched before batch *i-depth+1* is waited on and its slot
+        released. ``depth`` is capped below ``n_buffers`` so the decode
+        workers keep free slots.
+
+        Stage timers: ``acquire`` = waiting on the decode workers,
+        ``dispatch`` = staging copy + upload + post-processing enqueue,
+        ``drain`` = waiting on the device.
+
+        ``transfer_priority`` (default: on only for 1-core hosts)
+        brackets each dispatch+drain window with :meth:`pause`, so decode
+        workers sleep while a transfer is in flight.
+        """
+        depth = max(1, min(depth, self._n_buffers - 1))
+        if transfer_priority is None:
+            transfer_priority = (os.cpu_count() or 1) == 1
+        self._set_worker_priority(transfer_priority)
+        on_gpu = self.device.type == "cuda"
+        stages = [
+            {"stream": torch.cuda.Stream(self.device) if on_gpu else None}
+            for _ in range(depth)
+        ]
+        pending: list = []  # (out, done event | None) in dispatch order
+
+        def drain_one():
+            out, done = pending[0]
+            with self.timer.measure("drain"):
+                if done is not None:
+                    done.synchronize()
+            pending.pop(0)
+            self.release()
+            return out
+
+        k = 0
+        try:
+            while True:
+                with self.timer.measure("acquire"):
+                    slot, n = self._acquire_raw()
+                if slot is None:
+                    break
+                if transfer_priority:
+                    self.pause(True)
+                try:
+                    with self.timer.measure("dispatch"), trace_range(
+                        "FusedPostproc"
+                    ):
+                        stage = stages[k % depth]
+                        k += 1
+                        planes = self._upload(slot, n, stage)
+                        out = planes if postproc is None else postproc(*planes)
+                        done = None
+                        if on_gpu:
+                            done = torch.cuda.Event()
+                            done.record(torch.cuda.current_stream(self.device))
+                            stage["done"] = done
+                    pending.append((out, done))
+                    drained = drain_one() if len(pending) >= depth else None
+                finally:
+                    if transfer_priority:
+                        self.pause(False)
+                if drained is not None:
+                    yield drained
+            while pending:
+                yield drain_one()
+        finally:
+            # early close / failure: wait for the device, then free the
+            # held slots so no in-flight copy reads a recycled slot
+            for _, done in pending:
+                if done is not None:
+                    done.synchronize()
+                self.release()
+            pending.clear()
+
+    # hooks with no native counterpart by default
+    def pause(self, paused: bool = True) -> None:
+        pass
+
+    def _set_worker_priority(self, idle: bool) -> None:
+        pass
+
+
+class NativeDecodePool(_RingFeed):
+    def __init__(
+        self,
+        sources: Sequence[str],
+        batch_size: int = 8,
+        out_format: PixelFormat = PixelFormat.NV12,
+        loop: bool = False,
+        max_frames_per_stream: int = 0,
+        n_buffers: int = 4,
+        plane_major: bool = False,
+        device=None,
+    ):
+        """``plane_major`` (YUV420 only) lays each ring buffer out as
+        [Y×batch | U×batch | V×batch], so each plane of a batch is one
+        contiguous block and a batch splits on the device for free.
+        ``device`` is where :meth:`batches` puts the batches (default
+        CUDA; pass ``"cpu"`` to run on the CPU)."""
+        from . import _lib
+
+        self.device = resolve_device(device)
+        self._h = None
+        self._lib = _lib.load()
+        self._err = _lib.last_error
+        props = _lib.probe(sources[0])
+        self.width = props["width"]
+        self.height = props["height"]
+        self.color_space: ColorSpace = props["color_space"]
+        self.color_range: ColorRange = props["color_range"]
+        self.batch_size = batch_size
+        self.out_format = PixelFormat(out_format)
+        self.frame_bytes = geometry.host_frame_size(
+            self.out_format, self.width, self.height
+        )
+        self._rows = self.frame_bytes // self.width
+        if plane_major and self.out_format != PixelFormat.YUV420:
+            raise ValueError("plane_major pools require YUV420 output")
+        self.plane_major = bool(plane_major)
+        urls = (C.c_char_p * len(sources))(
+            *[str(s).encode() for s in sources]
+        )
+        self._n_buffers = n_buffers
+        self._h = self._lib.vpf_pool_create(
+            urls, len(sources), batch_size, self.frame_bytes,
+            int(self.out_format), 1 if loop else 0, max_frames_per_stream,
+            n_buffers, 1 if plane_major else 0,
+        )
+        if not self._h:
+            raise RuntimeError(f"pool create failed: {self._err()}")
+        self.timer = StageTimer()
+
+    def pause(self, paused: bool = True) -> None:
+        """Transfer-priority handshake: ``pause(True)`` puts the decode
+        workers to sleep after their in-flight frame; ``pause(False)``
+        wakes them (see ``batches(transfer_priority=)``)."""
+        self._lib.vpf_pool_pause(self._h, 1 if paused else 0)
+
+    def _set_worker_priority(self, idle: bool) -> None:
+        # SCHED_IDLE workers suit the serialized bracket; the overlapped
+        # mode needs fair scheduling or decode starves
+        self._lib.vpf_pool_worker_priority(self._h, 1 if idle else 0)
+
+    def _acquire_raw(self):
+        """The whole next ring slot as a uint8 view and its frame count,
+        or (None, 0) when every stream is drained."""
+        data = C.POINTER(C.c_uint8)()
+        count = C.c_int()
+        r = self._lib.vpf_pool_acquire_batch(
+            self._h, C.byref(data), C.byref(count)
+        )
+        if r == 0:  # NEED_MORE: drained
+            return None, 0
+        if r != 1:
+            raise RuntimeError(self._err())
+        slot = np.ctypeslib.as_array(
+            data, shape=(self.batch_size * self.frame_bytes,)
+        )
+        return slot, count.value
+
+    def acquire(self) -> Optional[np.ndarray]:
+        """Next packed batch as a zero-copy (count, rows, W) view, or None
+        when drained. Call :meth:`release` when done."""
+        if self.plane_major:
+            raise RuntimeError(
+                "plane-major pools have no packed per-frame layout; use "
+                "acquire_planes() / batches()"
+            )
+        slot, n = self._acquire_raw()
+        if slot is None:
+            return None
+        return slot[: n * self.frame_bytes].reshape(n, self._rows, self.width)
+
+    def acquire_planes(self):
+        """Next batch of a plane-major pool as zero-copy contiguous
+        (y, u, v) views, or None when drained. Call :meth:`release`."""
+        if not self.plane_major:
+            raise RuntimeError("acquire_planes() needs plane_major=True")
+        slot, n = self._acquire_raw()
+        if slot is None:
+            return None
+        return tuple(
+            p.numpy() for p in self._split(torch.from_numpy(slot), n,
+                                           self.batch_size)
+        )
+
+    def acquire_flat(self):
+        """Next FULL plane-major batch as ONE zero-copy 1-D view of the
+        slot ([Y×cap | U×cap | V×cap]), the (y, u, v) views for a ragged
+        tail, or None when drained. Call :meth:`release`."""
+        if not self.plane_major:
+            raise RuntimeError("acquire_flat() needs plane_major=True")
+        slot, n = self._acquire_raw()
+        if slot is None:
+            return None
+        if n == self.batch_size:
+            return slot
+        return tuple(
+            p.numpy() for p in self._split(torch.from_numpy(slot), n,
+                                           self.batch_size)
+        )
+
+    def release(self) -> None:
+        self._lib.vpf_pool_release_batch(self._h)
+
+    @property
+    def frames_decoded(self) -> int:
+        return self._lib.vpf_pool_frames_decoded(self._h)
+
+    @property
+    def frames_dropped(self) -> int:
+        """Frames zero-filled because frame packing failed."""
+        return self._lib.vpf_pool_frames_dropped(self._h)
+
+    @property
+    def drop_reason(self) -> str:
+        return self._lib.vpf_pool_drop_reason(self._h).decode(
+            "utf-8", "replace"
+        )
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.vpf_pool_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class HostBatchRing(_RingFeed):
+    """A ring of seeded plane-major YUV420 batches in host memory, served
+    through the same upload, event and depth loop as the decode pool.
+
+    It stands in for the decode stage where the libav runtime cannot be
+    built, so the device path still runs at the real batch and frame
+    size; it decodes nothing.
+    """
+
+    def __init__(self, width: int, height: int, batch_size: int,
+                 n_batches: int, n_buffers: int = 4, seed: int = 0,
+                 device=None):
+        self.device = resolve_device(device)
+        self.width, self.height = width, height
+        self.batch_size = batch_size
+        self.plane_major = True
+        self.frame_bytes = geometry.host_frame_size(
+            PixelFormat.YUV420, width, height
+        )
+        self._n_buffers = n_buffers
+        rng = np.random.default_rng(seed)
+        self._ring = [
+            rng.integers(0, 256, batch_size * self.frame_bytes, np.uint8)
+            for _ in range(n_buffers)
+        ]
+        self.held = 0  # slots acquired and not yet released
+        self.rewind(n_batches)
+
+    def rewind(self, n_batches: int) -> "HostBatchRing":
+        """Serve ``n_batches`` more batches from the same ring contents."""
+        if self.held:
+            raise RuntimeError("rewind with slots still held")
+        self._left = n_batches
+        self._next = 0
+        self.timer = StageTimer()
+        return self
+
+    def _acquire_raw(self):
+        if self._left == 0:
+            return None, 0
+        if self.held >= self._n_buffers:
+            raise RuntimeError("every ring slot is held")
+        self._left -= 1
+        self.held += 1
+        slot = self._ring[self._next]
+        self._next = (self._next + 1) % self._n_buffers
+        return slot, self.batch_size
+
+    def release(self) -> None:
+        self.held -= 1
