@@ -18,6 +18,16 @@ Phases, each of which raises on failure:
    ResNet-50 (bf16, seeded weights), with the kernel's launch count taken
    over that run alone. Without libav the pool's upload loop is fed
    seeded 1080p batches from host memory instead of decoded frames.
+6. Converter path: the full-resolution NV12 / YUV420 → planar RGB kernel
+   (csc_rgb_planar) vs its plain version (0 codes) and the float64
+   golden (≤1 code) at 1080p ×32, 2160p ×4, 270×482 ×2 and 30×100 ×2,
+   swap on and off; one seeded 1080p NV12 frame through FrameUploader →
+   SurfaceConverter(NV12 → RGB_PLANAR).Execute → SurfaceDownloader vs the
+   golden; 48 seeded 1080p batches of 32, NV12 (BT.709) and YUV420
+   (BT.601), through DoubleBufferedUploader(depth=2) → run_planes →
+   surface_to_torch, with the kernel's launch count taken over each run
+   alone; kernel timings beside the bound and the plain version.
+7. Timings of fused_resize_csc on NV12 input at 1080p→224² ×32.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -38,9 +48,16 @@ import torch
 
 KERNEL_SOURCE = "videoprocessingframework_torch/csrc/fused_resize_csc.cu"
 REPLACES = "videoprocessingframework_tpu/ops/pallas_fused.py:948"
+CSC_SOURCE = "videoprocessingframework_torch/csrc/csc_rgb_planar.cu"
+CSC_REPLACES = "videoprocessingframework_tpu/ops/pallas_kernels.py:96"
 BATCH = 32
 SRC_W, SRC_H = 1920, 1080
 OUT = 224
+#: (batch, height, width) of the csc_rgb_planar checks (phase 6); the
+#: kernel takes 8 columns a thread at the first two, 2 at 270×482 and 4
+#: at 30×100
+CSC_CHECKS = [(BATCH, SRC_H, SRC_W), (4, 2160, 3840), (2, 270, 482),
+              (2, 30, 100)]
 # kernel vs plain tolerances: u8 may flip one code at a rounding boundary;
 # float outputs carry float32 summation-order noise (~1e-4 of a code),
 # ×1/255, ×1/std (≈4.4) for normalized
@@ -257,7 +274,7 @@ def kernel_bound(b, h, w, oh, ow, out_bytes, mem_rate, flop_rate):
         "bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def time_kernel(device, rates) -> dict:
+def time_kernel(device, rates, layout="planar") -> dict:
     from videoprocessingframework_torch.core.enums import (
         ColorRange,
         ColorSpace,
@@ -271,23 +288,32 @@ def time_kernel(device, rates) -> dict:
     )
 
     y, u, v = _seeded_yuv(BATCH, SRC_H, SRC_W, seed=7, device=device)
+    if layout == "planar":
+        fmt, planes = PixelFormat.YUV420, (y, u, v)
+        kern = fc.fused_yuv420_resize_rgb
+        plain_fn = fc.fused_yuv420_resize_rgb_ref
+    else:
+        fmt, planes = PixelFormat.NV12, (y, _interleave(u, v))
+        kern = fc.fused_nv12_resize_rgb
+        plain_fn = fc.fused_nv12_resize_rgb_ref
     rec = {}
     for out in ("rgb_u8", "normalized"):
         kw = dict(out_h=OUT, out_w=OUT, output=out, mean=IMAGENET_MEAN,
                   std=IMAGENET_STD)
-        lib = FusedPipeline(PixelFormat.YUV420, ColorSpace.BT_709,
-                            ColorRange.MPEG, (OUT, OUT), output=out,
-                            kernel="torch", compute="highest")
-        ms = cuda_ms(lambda: fc.fused_yuv420_resize_rgb(y, u, v, **kw))
-        plain = cuda_ms(lambda: fc.fused_yuv420_resize_rgb_ref(y, u, v, **kw))
-        library = cuda_ms(lambda: lib(y, u, v))
-        ms2 = cuda_ms(lambda: fc.fused_yuv420_resize_rgb(y, u, v, **kw))
+        lib = FusedPipeline(fmt, ColorSpace.BT_709, ColorRange.MPEG,
+                            (OUT, OUT), output=out, kernel="torch",
+                            compute="highest")
+        ms = cuda_ms(lambda: kern(*planes, **kw))
+        plain = cuda_ms(lambda: plain_fn(*planes, **kw))
+        library = cuda_ms(lambda: lib(*planes))
+        ms2 = cuda_ms(lambda: kern(*planes, **kw))
         bound, by, nbytes = kernel_bound(
             BATCH, SRC_H, SRC_W, OUT, OUT, 1 if out == "rgb_u8" else 4,
             *rates)
         kernel_ms = min(ms, ms2)
-        log(f"time {out} 1080p->224 b{BATCH}: kernel {ms:.4f} / {ms2:.4f} "
-            f"ms per batch ({1e3 * kernel_ms / BATCH:.3f} us/frame), "
+        log(f"time {layout} {out} 1080p->224 b{BATCH}: kernel {ms:.4f} / "
+            f"{ms2:.4f} ms per batch "
+            f"({1e3 * kernel_ms / BATCH:.3f} us/frame), "
             f"{nbytes / BATCH:.0f} B/frame, "
             f"{nbytes / kernel_ms / 1e6:.1f} GB/s vs bound {bound:.4f} ms "
             f"({by}; {100 * bound / kernel_ms:.1f}% of bound); plain "
@@ -452,6 +478,241 @@ def _host_decode(pool):
         yield n
 
 
+# ---- phase 6 -------------------------------------------------------------------
+
+
+def _csc_golden(y, u, v, space, rng):
+    """float64 golden (B, 3, H, W) of the full-resolution conversion."""
+    from videoprocessingframework_torch.ops import golden
+
+    out = np.stack([golden.yuv420_to_rgb(y[i], u[i], v[i], space, rng)
+                    for i in range(len(y))])
+    return np.moveaxis(out, -1, 1).astype(np.int64)
+
+
+def check_csc(device) -> None:
+    """csc_rgb_planar vs its plain version (0 codes) and vs the golden
+    (≤1 code, first two frames), NV12 and planar chroma, swap on and off,
+    every column width the kernel takes."""
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+    )
+    from videoprocessingframework_torch.ops import csc_cuda as cc
+
+    all_combos = [(s, r) for s in (ColorSpace.BT_709, ColorSpace.BT_601)
+                  for r in (ColorRange.MPEG, ColorRange.JPEG)]
+    for b, h, w in CSC_CHECKS:
+        y, u, v = _seeded_yuv(b, h, w, seed=h + 1, device=device)
+        uv = _interleave(u, v)
+        # every combination at the small size, two at the large ones
+        combos = all_combos if h < 1000 else all_combos[::2]
+        for space, rng in combos:
+            gold = _csc_golden(*(p[:2].cpu().numpy() for p in (y, u, v)),
+                               space, rng)
+            for layout in ("nv12", "planar"):
+                for swap in (False, True):
+                    kw = dict(space=space, rng=rng, swap=swap)
+                    if layout == "nv12":
+                        got = cc.nv12_to_rgb_planar(y, uv, **kw)
+                        want = cc.nv12_to_rgb_planar_ref(y, uv, **kw)
+                    else:
+                        got = cc.yuv420_to_rgb_planar(y, u, v, **kw)
+                        want = cc.yuv420_to_rgb_planar_ref(y, u, v, **kw)
+                    torch.cuda.synchronize()
+                    require(got.shape == (b, 3, h, w), f"shape {got.shape}")
+                    err = (got.int() - want.int()).abs().max().item()
+                    g = gold[:, ::-1] if swap else gold
+                    gerr = np.abs(got[:2].cpu().numpy().astype(np.int64)
+                                  - g).max()
+                    line = (f"check csc {layout} {h}x{w} b{b} {space.name}/"
+                            f"{rng.name} swap={swap}: max|kernel-plain| "
+                            f"{err} (tol 0), max|kernel-golden| {gerr} "
+                            f"(tol 1)")
+                    log(line)
+                    require(err == 0 and gerr <= 1, line)
+
+
+def csc_bound(b, h, w, mem_rate, flop_rate):
+    """(bound ms, bound_by, bytes) of one conversion: each input byte read
+    once, each output byte written once; per output pixel 3 × (3 mul +
+    2 add) plus the luma offset, per chroma sample its two offsets."""
+    nbytes = b * (h * w + 2 * (h // 2) * (w // 2)) + b * 3 * h * w
+    flops = b * (16 * h * w + 2 * (h // 2) * (w // 2))
+    t_bytes, t_ops = nbytes / mem_rate, flops / flop_rate
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def converter_per_frame(device) -> None:
+    """The README's shape: one 1080p NV12 host frame → FrameUploader →
+    SurfaceConverter(NV12 → RGB_PLANAR).Execute → SurfaceDownloader."""
+    from videoprocessingframework_torch import (
+        ColorRange,
+        ColorSpace,
+        ColorspaceConversionContext,
+        PixelFormat,
+        Surface,
+        SurfaceConverter,
+    )
+    from videoprocessingframework_torch.interop import (
+        FrameUploader,
+        SurfaceDownloader,
+    )
+    from videoprocessingframework_torch.ops import csc_cuda as cc
+    from videoprocessingframework_torch.ops import golden
+
+    fmt, w, h = PixelFormat.NV12, SRC_W, SRC_H
+    frame = np.random.default_rng(11).integers(0, 256, w * h * 3 // 2,
+                                               np.uint8)
+    up = FrameUploader(w, h, fmt, device=device)
+    conv = SurfaceConverter(w, h, fmt, PixelFormat.RGB_PLANAR)
+    down = SurfaceDownloader(w, h, PixelFormat.RGB_PLANAR)
+    ctx = ColorspaceConversionContext(ColorSpace.BT_709, ColorRange.MPEG)
+    down(conv.Execute(up(frame), ctx))  # warm-up
+    n = 30
+    cc.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = down(conv.Execute(up(frame), ctx))
+    fps = n / (time.perf_counter() - t0)
+    launches = cc.LAUNCHES["csc_rgb_planar"]
+    require(launches == n, f"per-frame path: {launches} launches for {n}")
+    host = Surface.from_host_frame(frame, fmt, w, h)
+    gold = np.moveaxis(golden.nv12_to_rgb(*host.planes, ColorSpace.BT_709,
+                                          ColorRange.MPEG), -1, 0)
+    err = np.abs(out.reshape(3, h, w).astype(np.int64) - gold).max()
+    log(f"per-frame path FrameUploader->SurfaceConverter.Execute->"
+        f"SurfaceDownloader, 1080p NV12 BT_709/MPEG: {fps:.1f} fps over {n} "
+        f"frames (host clock, each frame synchronised), csc_rgb_planar "
+        f"launches {launches}; max|result-golden| {err} (tol 1)")
+    require(err <= 1, "per-frame path vs golden")
+
+
+def converter_batched(device, fmt_name: str, n_batches: int = 48) -> dict:
+    """Seeded 1080p batches of 32 through DoubleBufferedUploader(depth=2)
+    → SurfaceConverter.run_planes → surface_to_torch, per frame."""
+    from videoprocessingframework_torch import (
+        ColorRange,
+        ColorSpace,
+        ColorspaceConversionContext,
+        PixelFormat,
+        Surface,
+        SurfaceConverter,
+    )
+    from videoprocessingframework_torch.interop import (
+        DoubleBufferedUploader,
+        surface_to_torch,
+    )
+    from videoprocessingframework_torch.ops import csc_cuda as cc
+
+    rng = np.random.default_rng(12)
+    b, h, w = BATCH, SRC_H, SRC_W
+
+    def u8(*shape):
+        return rng.integers(0, 256, shape, np.uint8)
+
+    if fmt_name == "NV12":
+        fmt, space = PixelFormat.NV12, ColorSpace.BT_709
+        host = [(u8(b, h, w), u8(b, h // 2, w)) for _ in range(3)]
+        plain = cc.nv12_to_rgb_planar_ref
+    else:  # yuv420 pairs allow BT.601 only (ops/colorspace.py)
+        fmt, space = PixelFormat.YUV420, ColorSpace.BT_601
+        host = [(u8(b, h, w), u8(b, h // 2, w // 2), u8(b, h // 2, w // 2))
+                for _ in range(3)]
+        plain = cc.yuv420_to_rgb_planar_ref
+    ctx = ColorspaceConversionContext(space, ColorRange.MPEG)
+    conv = SurfaceConverter(w, h, fmt, PixelFormat.RGB_PLANAR)
+    up = DoubleBufferedUploader(device=device, depth=2)
+    first = {}
+
+    def consume(planes) -> int:
+        out = conv.run_planes(planes, ctx)[0]
+        if not first:
+            first.update(planes=planes, out=out)
+        for k in range(out.shape[0]):
+            t = surface_to_torch(Surface(PixelFormat.RGB_PLANAR, w, h,
+                                         [out[k]]))
+            require(t.data_ptr() == out[k].data_ptr(), "zero-copy export")
+        return out.shape[0]
+
+    def run(n) -> float:
+        frames = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            got = up.put(host[i % len(host)])
+            if got is not None:
+                frames += consume(got)
+        for got in up.drain():
+            frames += consume(got)
+        torch.cuda.synchronize()
+        require(frames == n * b, f"{frames} frames out of {n * b}")
+        return frames / (time.perf_counter() - t0)
+
+    run(3)  # warm-up: pinned staging, allocations
+    first.clear()
+    cc.reset_launches()
+    fps = run(n_batches)
+    launches = cc.LAUNCHES["csc_rgb_planar"]
+    want = plain(*first["planes"], space=space, rng=ColorRange.MPEG)
+    err = (first["out"].view(b, 3, h, w).int() - want.int()).abs().max()
+    err = int(err.item())
+    log(f"batched {fmt_name} {space.name}/MPEG: DoubleBufferedUploader -> "
+        f"run_planes -> surface_to_torch: {fps:.1f} fps over {n_batches} "
+        f"batches of {b}; csc_rgb_planar launches in this run: {launches}; "
+        f"first batch kernel vs plain max abs {err} (tol 0)")
+    require(launches >= n_batches, f"{launches} csc_rgb_planar launches")
+    require(err == 0, "first batch kernel vs plain")
+    return {"launches": launches, "max_abs_err": err, "fps": fps}
+
+
+def time_csc(device, rates) -> dict:
+    """csc_rgb_planar at 1080p ×32 beside its bound and plain version."""
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+    )
+    from videoprocessingframework_torch.ops import csc_cuda as cc
+
+    y, u, v = _seeded_yuv(BATCH, SRC_H, SRC_W, seed=9, device=device)
+    uv = _interleave(u, v)
+    bound, by, nbytes = csc_bound(BATCH, SRC_H, SRC_W, *rates)
+    rec = {}
+    for layout, kern, plain_fn, planes, space in [
+        ("nv12", cc.nv12_to_rgb_planar, cc.nv12_to_rgb_planar_ref, (y, uv),
+         ColorSpace.BT_709),
+        ("planar", cc.yuv420_to_rgb_planar, cc.yuv420_to_rgb_planar_ref,
+         (y, u, v), ColorSpace.BT_601),
+    ]:
+        kw = dict(space=space, rng=ColorRange.MPEG)
+        ms = cuda_ms(lambda: kern(*planes, **kw))
+        plain = cuda_ms(lambda: plain_fn(*planes, **kw), reps=5)
+        ms2 = cuda_ms(lambda: kern(*planes, **kw))
+        kernel_ms = min(ms, ms2)
+        log(f"time csc {layout} 1080p b{BATCH}: kernel {ms:.4f} / {ms2:.4f} "
+            f"ms per batch ({1e3 * kernel_ms / BATCH:.3f} us/frame), "
+            f"{nbytes / BATCH:.0f} B/frame, "
+            f"{nbytes / kernel_ms / 1e6:.1f} GB/s vs bound {bound:.4f} ms "
+            f"({by}; {100 * bound / kernel_ms:.1f}% of bound); plain "
+            f"{plain:.4f} ms; library: none (no single PyTorch call "
+            f"computes 4:2:0 upsample + CSC + u8 store)")
+        rec[layout] = dict(ms=kernel_ms, plain_ms=plain, bound_ms=bound,
+                           bound_by=by)
+    return rec
+
+
+def converter_path(device, rates) -> dict:
+    check_csc(device)
+    log("phase 6 checks ok: csc_rgb_planar equals its plain version")
+    converter_per_frame(device)
+    runs = [converter_batched(device, name) for name in ("NV12", "YUV420")]
+    times = time_csc(device, rates)
+    return {"launches": sum(r["launches"] for r in runs),
+            "max_abs_err": max(r["max_abs_err"] for r in runs),
+            "times": times}
+
+
 # ---- main ----------------------------------------------------------------------
 
 
@@ -472,8 +733,11 @@ def main() -> int:
     times = time_kernel(device, rates)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
         run = main_path(device, missing, tmp)
+    conv = converter_path(device, rates)
+    time_kernel(device, rates, layout="nv12")  # phase 7
 
     t = times["normalized"]
+    c = conv["times"]["nv12"]
     record = {"kernels": [{
         "name": "fused_resize_csc",
         "route": "cuda",
@@ -486,6 +750,18 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+    }, {
+        "name": "csc_rgb_planar",
+        "route": "cuda",
+        "source": CSC_SOURCE,
+        "replaces": CSC_REPLACES,
+        "launches": conv["launches"],
+        "max_abs_err": conv["max_abs_err"],
+        "ms": c["ms"],
+        "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"],
+        "library_ms": None,
     }]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(record))

@@ -38,7 +38,7 @@ def test_port_imports_no_jax():
     )
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.strip().splitlines()[-2:]
-    assert int(n) >= 15  # every module of the slice was imported
+    assert int(n) >= 34  # every module of slices 1 and 2 was imported
     assert bad == "BAD []"
 
 

@@ -1,5 +1,7 @@
-"""Enums and plane geometry."""
+"""Enums, plane geometry, metadata types and the Surface memory objects."""
 
 from .enums import ColorRange, ColorSpace, PixelFormat
+from .surface import HostBuffer, Surface, SurfacePlane
 
-__all__ = ["ColorRange", "ColorSpace", "PixelFormat"]
+__all__ = ["ColorRange", "ColorSpace", "HostBuffer", "PixelFormat",
+           "Surface", "SurfacePlane"]

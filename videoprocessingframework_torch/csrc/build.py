@@ -1,10 +1,11 @@
 """Build and bind the package's CUDA kernels.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles every ``*.cu``
-here into one shared library with a plain C interface, loaded with
-ctypes (no PyTorch headers, so a build takes seconds). The build runs at
-first use into the gitignored ``csrc/_build/``, keyed by a content hash
-of the sources and flags. A failed build raises; nothing falls back.
+here, one nvcc per source, all started together, and links the objects
+into one shared library with a plain C interface, loaded with ctypes (no
+PyTorch headers, so a build takes seconds). The build runs at first use
+into the gitignored ``csrc/_build/``, keyed by a content hash of the
+sources and flags. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -38,12 +39,18 @@ def nvcc() -> str:
 def build() -> pathlib.Path:
     """Compile (once per source hash) and return the library's path."""
     compiler = nvcc()
-    return cached_build(
-        OUT_DIR, "libvpf_kernels", SOURCES,
-        lambda out: [compiler, *NVCC_FLAGS, *map(str, SOURCES), "-o",
-                     str(out)],
-        key=" ".join(NVCC_FLAGS),
-    )
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+
+    def steps(out: pathlib.Path):
+        objs = [str(out.parent / f"{src.stem}.o") for src in SOURCES]
+        return [
+            [[compiler, *compile_flags, "-c", str(src), "-o", obj]
+             for src, obj in zip(SOURCES, objs)],
+            [[compiler, ARCH, "-shared", *objs, "-o", str(out)]],
+        ]
+
+    return cached_build(OUT_DIR, "libvpf_kernels", SOURCES, steps,
+                        key=" ".join(NVCC_FLAGS))
 
 
 @functools.lru_cache(maxsize=1)
@@ -58,6 +65,10 @@ def load_kernels() -> C.CDLL:
         + [p, p, i] * 4
         + [p, i, i, i, C.POINTER(C.c_float), p]
     )
+    fn = lib.vpf_csc_rgb_planar
+    fn.restype = i
+    fn.argtypes = [p, p, p, i, i, i, i, i64, i64, i64, i64, p, i,
+                   C.POINTER(C.c_float), p]
     lib.vpf_cuda_error_string.restype = C.c_char_p
     lib.vpf_cuda_error_string.argtypes = [i]
     return lib

@@ -50,7 +50,7 @@ def build() -> pathlib.Path:
     return cached_build(
         OUT_DIR, "libvpf_host",
         [SRC / "common.hpp"] + [SRC / s for s in SOURCES],
-        lambda out: ["g++", *CFLAGS, *[str(SRC / s) for s in SOURCES],
-                     *flags, "-o", str(out)],
+        lambda out: [[["g++", *CFLAGS, *[str(SRC / s) for s in SOURCES],
+                       *flags, "-o", str(out)]]],
         key=" ".join(CFLAGS + flags),
     )

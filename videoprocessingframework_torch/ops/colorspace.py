@@ -56,6 +56,23 @@ def rgb_from_ycbcr_matrix(
     return m @ scale, off
 
 
+def f32(x) -> float:
+    """A float32 constant as a Python float (exact), so tensor arithmetic
+    with it stays in float32 on any device."""
+    return float(np.float32(x))
+
+
+def rgb_from_ycbcr_f32(
+    space: ColorSpace, rng: ColorRange, swap: bool = False
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The float32 constants of every device path: the rows of
+    :func:`rgb_from_ycbcr_matrix` in OUTPUT channel order (B, G, R when
+    ``swap``) and the Y/Cb/Cr offsets."""
+    m, off = rgb_from_ycbcr_matrix(ColorSpace(space), ColorRange(rng))
+    m = np.asarray(m, np.float32)[[2, 1, 0] if swap else [0, 1, 2]]
+    return m, np.asarray(off, np.float32)
+
+
 def ycbcr_from_rgb_matrix(
     space: ColorSpace, rng: ColorRange
 ) -> Tuple[np.ndarray, np.ndarray]:

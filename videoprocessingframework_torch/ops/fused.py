@@ -19,8 +19,9 @@ from torch import nn
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
 from ..utils.device import resolve_device
 from . import colorspace as cs
+from .colorspace import f32
+from .convert import _deinterleave_uv, _round_u8, _upsample2
 from .fused_cuda import (
-    _f,
     fused_cuda_supported,
     fused_nv12_resize_rgb,
     fused_yuv420_resize_rgb,
@@ -103,20 +104,6 @@ def _resize_plane2d(x, rmat, cmat, mode):
     if rows_first:
         return _cols(cmat, _rows(rmat, x))
     return _rows(rmat, _cols(cmat, x))
-
-
-def _deinterleave_uv(uv):
-    """NV12 chroma (..., H/2, W) → U, V each (..., H/2, W/2)."""
-    return uv[..., 0::2], uv[..., 1::2]
-
-
-def _upsample2(c):
-    """(..., H/2, W/2) → (..., H, W) 2×2 replicate (NPP nearest)."""
-    return c.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
-
-
-def _round_u8(x):
-    return torch.clamp(torch.round(x), 0.0, 255.0).to(torch.uint8)
 
 
 def unpack_yuv_planes(fmt: PixelFormat, planes):
@@ -268,7 +255,7 @@ def decode_postproc(
 
     if output == "rgb_u8":
         return _round_u8(rgb)
-    x = torch.clamp(rgb * _f(1.0 / 255.0), 0.0, 1.0)
+    x = torch.clamp(rgb * f32(1.0 / 255.0), 0.0, 1.0)
     if output == "rgb_f32":
         return x
     x = (x - torch.tensor(mean, dtype=torch.float32, device=dev)) * (

@@ -29,6 +29,7 @@ import torch
 
 from ..core.enums import ColorRange, ColorSpace
 from . import colorspace as cs
+from .colorspace import f32
 from .resize import SUPPORTED, chroma_collapse, resize_matrix
 
 OUTPUTS = ("rgb_u8", "rgb_f32", "normalized")
@@ -113,27 +114,18 @@ def fused_cuda_supported(h: int, w: int, out_h: int, out_w: int,
 def _csc_consts(space, rng, swap, mean, std):
     """float32 CSC rows in OUTPUT channel order (swap applied), offsets,
     and the per-output-channel mean / reciprocal std."""
-    m, off = cs.rgb_from_ycbcr_matrix(ColorSpace(space), ColorRange(rng))
-    m = np.asarray(m, np.float32)
-    chans = [2, 1, 0] if swap else [0, 1, 2]
+    m, off = cs.rgb_from_ycbcr_f32(space, rng, swap)
     inv_std = np.float32(1.0) / np.asarray(std, np.float32)
-    return (m[chans], np.asarray(off, np.float32),
-            np.asarray(mean, np.float32), inv_std)
-
-
-def _f(x) -> float:
-    """A float32 constant as a Python float (exact), so tensor arithmetic
-    stays in float32 on any device."""
-    return float(np.float32(x))
+    return m, off, np.asarray(mean, np.float32), inv_std
 
 
 def _store(val: torch.Tensor, output: str, mean_i, inv_std_i) -> torch.Tensor:
     """One RGB channel in the requested output mode."""
     if output == "rgb_u8":
         return torch.clamp(torch.round(val), 0.0, 255.0).to(torch.uint8)
-    x = torch.clamp(val * _f(1.0 / 255.0), 0.0, 1.0)
+    x = torch.clamp(val * f32(1.0 / 255.0), 0.0, 1.0)
     if output == "normalized":
-        x = (x - _f(mean_i)) * _f(inv_std_i)
+        x = (x - f32(mean_i)) * f32(inv_std_i)
     return x
 
 
@@ -161,9 +153,9 @@ def _plain(y, u, v, out_h, out_w, space, rng, method, swap, output, mean,
     ur = rmc @ u.to(f) @ cmc.T
     vr = rmc @ v.to(f) @ cmc.T
     m, off, mean, inv_std = _csc_consts(space, rng, swap, mean, std)
-    yr, ur, vr = yr - _f(off[0]), ur - _f(off[1]), vr - _f(off[2])
+    yr, ur, vr = yr - f32(off[0]), ur - f32(off[1]), vr - f32(off[2])
     chans = [
-        _store(_f(m[i, 0]) * yr + _f(m[i, 1]) * ur + _f(m[i, 2]) * vr,
+        _store(f32(m[i, 0]) * yr + f32(m[i, 1]) * ur + f32(m[i, 2]) * vr,
                output, mean[i], inv_std[i])
         for i in range(3)
     ]

@@ -1,10 +1,13 @@
-"""Separable resize matrices (numpy float64 math, float32 result).
+"""Separable resize: the matrices (numpy float64 math, float32 result),
+the plane resizer and ``SurfaceResizer``.
 
 A resize is ``out = R @ img @ Cᵀ`` with R (H_out×H_in) and C (W_out×W_in)
 precomputed interpolation matrices. The fused device path
 (ops/fused.py, csrc/fused_resize_csc.cu) consumes them either densely
-(the torch path) or as compact per-output tap tables (the CUDA kernel).
-Supported filters:
+(the torch path) or as compact per-output tap tables (the CUDA kernel);
+:func:`resize_plane` applies them as two float32 ``torch.matmul``s (plain
+large products, as the JAX package left them to XLA; no kernel of its
+own). Supported filters:
 
 * ``lanczos``  — 3-lobe Lanczos (fixed 6-tap kernel, no antialiasing
   scaling — NPP's plain Lanczos interpolation mode)
@@ -18,8 +21,15 @@ edge clamping and per-row weight normalization.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Tuple
 
 import numpy as np
+import torch
+
+from ..core import geometry
+from ..core.enums import PixelFormat
+from ..core.surface import Surface
+from ..utils.tracing import trace_range
 
 SUPPORTED = ("lanczos", "bilinear", "nearest")
 
@@ -84,3 +94,102 @@ def chroma_collapse(mat: np.ndarray) -> np.ndarray:
     """
     o, n = mat.shape
     return mat.reshape(o, n // 2, 2).sum(-1)
+
+
+F = PixelFormat
+
+
+def resize_plane(
+    img: torch.Tensor,
+    *,
+    h_out: int,
+    w_out: int,
+    method: str = "lanczos",
+    round_u8: bool = True,
+) -> torch.Tensor:
+    """Resize (..., H, W) or (..., H, W, C) tensors via two float32
+    matmuls (TF32 must be off on CUDA: the products are full float32)."""
+    if img.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("resize_plane is full float32: turn TF32 matmul "
+                           "off")
+    has_c = img.dim() >= 3 and img.shape[-1] <= 4 and img.dim() > 2
+    # canonicalize to (..., C, H, W)
+    x = torch.movedim(img if has_c else img[..., None], -1, -3)
+    h_in, w_in = x.shape[-2], x.shape[-1]
+    r = torch.from_numpy(resize_matrix(h_in, h_out, method)).to(img.device)
+    c = torch.from_numpy(resize_matrix(w_in, w_out, method)).to(img.device)
+    y = torch.matmul(torch.matmul(r, x.to(torch.float32)), c.T)
+    if not torch.is_floating_point(img):
+        if round_u8:
+            info = torch.iinfo(img.dtype)
+            y = torch.clamp(torch.round(y), info.min, info.max).to(img.dtype)
+        # else: caller wants the float32 intermediate (fusion)
+    else:
+        y = y.to(img.dtype)
+    y = torch.movedim(y, -3, -1)
+    return y if has_c else y[..., 0]
+
+
+def resize_packed3(img: torch.Tensor, h_out: int, w_out: int,
+                   method="lanczos"):
+    """(..., H, 3W) interleaved → (..., h_out, 3·w_out)."""
+    x = img.reshape(*img.shape[:-1], img.shape[-1] // 3, 3)
+    y = resize_plane(x, h_out=h_out, w_out=w_out, method=method)
+    return y.reshape(*y.shape[:-2], y.shape[-2] * 3)
+
+
+class SurfaceResizer:
+    """Fixed-target resizer over Surfaces (PySurfaceResizer analog,
+    src/PyNvCodec/src/PySurfaceResizer.cpp). Handles every format family
+    the reference does: packed 8-bit C3 (RGB/BGR), planar 8-bit per plane
+    (YUV420/YCbCr/YUV444/RGB_PLANAR/Y/NV12), packed/planar float32. It
+    runs on the device the planes are on; a host Surface is uploaded to
+    the default device (CUDA) first."""
+
+    def __init__(self, width: int, height: int, fmt: PixelFormat,
+                 method: str = "lanczos"):
+        self.width = width
+        self.height = height
+        self.format = PixelFormat(fmt)
+        self.method = method
+        if self.format not in geometry.PLANE_SPECS:
+            raise ValueError(f"unsupported format {fmt}")
+
+    def run_planes(self, planes: Tuple[torch.Tensor, ...]) -> tuple:
+        """Resize batched plane tensors (leading N) to the target size."""
+        fmt = self.format
+        specs = geometry.PLANE_SPECS[fmt]
+        out = []
+        for spec, p in zip(specs, planes):
+            th = (self.height * spec.height_num) // spec.height_den
+            tw = (self.width * spec.width_num) // spec.width_den
+            if fmt in (F.RGB, F.BGR, F.RGB_32F):
+                out.append(resize_packed3(p, th, tw, self.method))
+            elif fmt in (F.NV12, F.NV12_PLANAR, F.P10, F.P12) and spec.channels == 2:
+                # interleaved UV: resize U and V separately
+                s = p.reshape(*p.shape[:-1], p.shape[-1] // 2, 2)
+                y = resize_plane(s, h_out=th, w_out=tw, method=self.method)
+                out.append(y.reshape(*y.shape[:-2], y.shape[-2] * 2))
+            elif fmt in (F.RGB_PLANAR, F.RGB_32F_PLANAR):
+                n, h3, w = p.shape
+                x = p.reshape(n, 3, h3 // 3, w)
+                y = resize_plane(
+                    x, h_out=self.height, w_out=tw, method=self.method
+                )
+                out.append(y.reshape(n, 3 * self.height, tw))
+            else:
+                out.append(resize_plane(p, h_out=th, w_out=tw, method=self.method))
+        return tuple(out)
+
+    def run(self, src: Surface) -> Surface:
+        if src.format != self.format:
+            raise ValueError(
+                f"Surface format {src.format.name} != resizer format "
+                f"{self.format.name}"
+            )
+        batched = tuple(p[None] for p in src.to_device().planes)
+        with trace_range("ResizeSurface"):
+            out = self.run_planes(batched)
+        return Surface(self.format, self.width, self.height, [p[0] for p in out])
+
+    Execute = run

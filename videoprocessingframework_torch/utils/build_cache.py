@@ -17,21 +17,44 @@ import hashlib
 import os
 import pathlib
 import subprocess
+import tempfile
 from typing import Callable, Sequence
+
+#: one compiler command; a build is a list of steps, each a list of
+#: commands started together
+Command = Sequence[str]
+
+
+def run_together(cmds: Sequence[Command]) -> None:
+    """Start every command at once and wait for all; raise RuntimeError
+    with the output of each that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"({proc.returncode}) {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
 
 
 def cached_build(
     out_dir: pathlib.Path,
     stem: str,
     sources: Sequence[pathlib.Path],
-    compile_to: Callable[[pathlib.Path], Sequence[str]],
+    compile_to: Callable[[pathlib.Path], Sequence[Sequence[Command]]],
     key: str = "",
 ) -> pathlib.Path:
     """Return ``out_dir/<stem>-<hash>.so``, building it if needed.
 
-    ``compile_to(path)`` gives the compiler command that writes the
-    library to ``path``; ``key`` adds flags to the hash. A failed build
-    raises RuntimeError with the compiler's output.
+    ``compile_to(path)`` gives the build that writes the library to
+    ``path``: steps run in order, the commands of a step started together
+    (:func:`run_together`). Intermediate files belong in ``path.parent``,
+    a scratch directory removed after the build. ``key`` adds flags to
+    the hash. A failed build raises RuntimeError with the compiler's
+    output.
     """
     h = hashlib.sha256(key.encode())
     for src in sources:
@@ -45,16 +68,10 @@ def cached_build(
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib.exists():  # built by another process while we waited
             return lib
-        tmp = out_dir / f".{lib.name}.{os.getpid()}.tmp"
-        try:
-            cmd = list(compile_to(tmp))
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"building {lib.name} failed ({r.returncode}):\n"
-                    f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}"
-                )
+        with tempfile.TemporaryDirectory(dir=out_dir,
+                                         prefix=f".{stem}-") as work:
+            tmp = pathlib.Path(work) / lib.name
+            for step in compile_to(tmp):
+                run_together(step)
             os.replace(tmp, lib)
-        finally:
-            tmp.unlink(missing_ok=True)
     return lib
