@@ -8,12 +8,17 @@ Phases, each of which raises on failure:
 
 1. Device: CUDA must be available; prints the card's name and power limit.
 2. Build: the CUDA kernel library (nvcc, sm_90a) and, where the libav
-   development files exist, the native host library; both at once.
-3. Kernel vs plain version vs float64 golden, planar and NV12 × rgb_u8 /
-   rgb_f32 / normalized, at 1080p→224² ×32, 2160p→224² ×4 and
-   464×848→61×45.
-4. Timings (CUDA events, warm-up, median): the kernel at 1080p→224² ×32
-   beside its bound, its plain version and the kernel="torch" path.
+   development files exist, the native host library; both at once, beside
+   an ``nvcc -Xptxas -v`` compile of fused_resize_csc.cu whose registers,
+   shared memory and spills are printed per kernel.
+3. fused_resize_csc (the band kernel) vs its first version (the direct
+   entry point: 0 codes, 0.0), vs its plain version and vs the float64
+   golden, planar and NV12 × rgb_u8 / rgb_f32 / normalized, at
+   1080p→224² ×32, 2160p→224² ×4 and 464×848→61×45 ×2.
+4. Timings (CUDA events, warm-up, median): the direct and band kernels
+   in turns (direct, band, band, direct) at 1080p→224² ×32 and
+   2160p→224² ×32, beside the bound, the plain version and the
+   kernel="torch" path.
 5. Main path: decode pool → FusedPipeline(kernel="cuda", normalized) →
    ResNet-50 (bf16, seeded weights), with the kernel's launch count taken
    over that run alone. Without libav the pool's upload loop is fed
@@ -27,7 +32,10 @@ Phases, each of which raises on failure:
    (BT.601), through DoubleBufferedUploader(depth=2) → run_planes →
    surface_to_torch, with the kernel's launch count taken over each run
    alone; kernel timings beside the bound and the plain version.
-7. Timings of fused_resize_csc on NV12 input at 1080p→224² ×32.
+7. Timings of fused_resize_csc on NV12 input at 1080p→224² ×32 (direct
+   and band in turns, as phase 4).
+8. What holds the band kernel: its time under 16 other plans, and with
+   its copies or its sums cut out (two more builds), at 1080p and 2160p.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +44,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -108,9 +117,44 @@ def peak_rates(name: str):
 # ---- phase 2 -------------------------------------------------------------------
 
 
+def ptxas_report() -> list:
+    """One line per kernel of fused_resize_csc.cu: registers, static
+    shared memory and spills, from ``nvcc -Xptxas -v`` with the build's
+    own flags (the band kernel's shared memory is dynamic: its plan
+    sizes it, and phase 4 prints it)."""
+    from videoprocessingframework_torch.csrc import build as kbuild
+
+    src = kbuild._HERE / "fused_resize_csc.cu"
+    flags = [f for f in kbuild.NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        res = subprocess.run(
+            [kbuild.nvcc(), *flags, "-Xptxas", "-v", "-c", str(src), "-o",
+             f"{tmp}/ptxas.o"],
+            capture_output=True, text=True, timeout=600, check=True)
+    lines, name, spill = [], "?", ""
+    for line in res.stderr.splitlines():
+        m = re.search(r"entry function '\S*?\d(fused_resize_csc(?:_band)?"
+                      r"_kernel)ILi(\d)ELi(\d)E", line)
+        if m:
+            name = f"{m.group(1)}<STEP={m.group(2)},MODE={m.group(3)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"ptxas {name}: {m.group(1)} registers, static "
+                         f"smem {smem.group(1) if smem else 0} B, {spill}")
+    return lines
+
+
 def build_all() -> str:
-    """Build the kernel library and the native host library in parallel;
-    returns '' or why the host library was not built."""
+    """Build the kernel library and the native host library in parallel,
+    beside the ptxas report; returns '' or why the host library was not
+    built."""
     from videoprocessingframework_torch.csrc import build as kbuild
     from videoprocessingframework_torch.io import build as hbuild
 
@@ -124,7 +168,7 @@ def build_all() -> str:
         except BaseException as e:  # re-raised below, in this thread
             results[name] = (e, time.perf_counter() - t0)
 
-    jobs = [("kernels", kbuild.load_kernels)]
+    jobs = [("kernels", kbuild.load_kernels), ("ptxas", ptxas_report)]
     if not missing:
         jobs.append(("host", hbuild.build))
     threads = [threading.Thread(target=run, args=j) for j in jobs]
@@ -136,6 +180,8 @@ def build_all() -> str:
         if isinstance(res, BaseException):
             raise res
         log(f"build {name}: {dt:.1f} s")
+    for line in results["ptxas"][0]:
+        log(line)
     if missing:
         log(f"build host: not built: libav development files absent "
             f"({missing})")
@@ -183,17 +229,19 @@ def _interleave(u, v):
 
 
 def check_kernel(device) -> float:
-    """Kernel vs plain (all modes) and vs golden (rgb_u8, two frames).
-    Returns the largest u8 error seen against the plain version."""
+    """Band kernel vs direct kernel (all modes, exact), vs plain (all
+    modes, TOL) and vs golden (rgb_u8, two frames). Returns the largest
+    u8 error seen against the plain version."""
     from videoprocessingframework_torch.ops import fused_cuda as fc
 
-    worst = 0.0
+    worst, worst_direct = 0.0, 0.0
     for b, h, w, oh, ow in [(BATCH, SRC_H, SRC_W, OUT, OUT),
                             (4, 2160, 3840, OUT, OUT), (2, 464, 848, 61, 45)]:
         y, u, v = _seeded_yuv(b, h, w, seed=h, device=device)
         uv = _interleave(u, v)
         gold = _golden(*(p[:2].cpu().numpy() for p in (y, u, v)), oh, ow)
         for layout in ("planar", "nv12"):
+            chroma = (u, v) if layout == "planar" else (uv,)
             for out in ("rgb_u8", "rgb_f32", "normalized"):
                 kw = dict(out_h=oh, out_w=ow, output=out)
                 if layout == "planar":
@@ -202,19 +250,26 @@ def check_kernel(device) -> float:
                 else:
                     got = fc.fused_nv12_resize_rgb(y, uv, **kw)
                     want = fc.fused_nv12_resize_rgb_ref(y, uv, **kw)
+                direct = fc._direct_resize_rgb(y, *chroma, **kw)
                 torch.cuda.synchronize()
                 require(got.shape == (b, 3, oh, ow), f"shape {got.shape}")
                 err = (got.float() - want.float()).abs().max().item()
+                derr = (got.float() - direct.float()).abs().max().item()
                 line = (f"check {layout} {h}x{w}->{oh}x{ow} b{b} {out}: "
-                        f"max|kernel-plain| {err:.3g} (tol {TOL[out]})")
+                        f"max|band-direct| {derr:.3g} (tol 0), "
+                        f"max|band-plain| {err:.3g} (tol {TOL[out]})")
                 if out == "rgb_u8":
                     gerr = np.abs(got[:2].cpu().numpy().astype(np.int64)
                                   - gold).max()
-                    line += f", max|kernel-golden| {gerr} (tol 1)"
+                    line += f", max|band-golden| {gerr} (tol 1)"
                     require(gerr <= 1, line)
                     worst = max(worst, err)
                 log(line)
-                require(err <= TOL[out], line)
+                worst_direct = max(worst_direct, derr)
+                require(err <= TOL[out] and bool(torch.equal(got, direct)),
+                        line)
+    log(f"phase 3: band kernel equals the direct kernel at every check "
+        f"(largest difference {worst_direct:.3g})")
     return worst
 
 
@@ -274,7 +329,26 @@ def kernel_bound(b, h, w, oh, ow, out_bytes, mem_rate, flop_rate):
         "bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def time_kernel(device, rates, layout="planar") -> dict:
+def _plan_line(h, w, step, plan_fn=None) -> str:
+    """The band plan of an h×w→224² batch, with the blocks an SM holds."""
+    from videoprocessingframework_torch.csrc import build as kbuild
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+
+    p = (plan_fn or fc.band_plan)(h, w, OUT, OUT, "lanczos", step, 16, 16)
+    per_sm = kbuild.load_kernels().vpf_fused_resize_csc_occupancy(
+        step, 0, p.threads, p.smem)
+    return (f"plan: {p.rows} rows x {p.cols} cols per block, "
+            f"{p.n_bands * p.n_tiles * BATCH} blocks of {p.threads} threads "
+            f"({p.producers} producer warps), "
+            f"{per_sm} per SM, chunks of {p.chunk} rows x {p.stages} stages, "
+            f"{p.smem} B shared")
+
+
+def time_kernel(device, rates, layout="planar", h=SRC_H, w=SRC_W,
+                others=True) -> dict:
+    """The direct and band kernels in turns (direct, band, band, direct)
+    at h×w→224² ×32, beside the bound and, with ``others``, the plain
+    version and the kernel="torch" path."""
     from videoprocessingframework_torch.core.enums import (
         ColorRange,
         ColorSpace,
@@ -287,40 +361,145 @@ def time_kernel(device, rates, layout="planar") -> dict:
         IMAGENET_STD,
     )
 
-    y, u, v = _seeded_yuv(BATCH, SRC_H, SRC_W, seed=7, device=device)
+    y, u, v = _seeded_yuv(BATCH, h, w, seed=7, device=device)
     if layout == "planar":
-        fmt, planes = PixelFormat.YUV420, (y, u, v)
+        fmt, chroma = PixelFormat.YUV420, (u, v)
         kern = fc.fused_yuv420_resize_rgb
         plain_fn = fc.fused_yuv420_resize_rgb_ref
     else:
-        fmt, planes = PixelFormat.NV12, (y, _interleave(u, v))
+        fmt, chroma = PixelFormat.NV12, (_interleave(u, v),)
         kern = fc.fused_nv12_resize_rgb
         plain_fn = fc.fused_nv12_resize_rgb_ref
+    log(f"time {layout} {h}x{w}->{OUT}x{OUT} "
+        f"{_plan_line(h, w, 1 if layout == 'planar' else 2)}")
     rec = {}
     for out in ("rgb_u8", "normalized"):
         kw = dict(out_h=OUT, out_w=OUT, output=out, mean=IMAGENET_MEAN,
                   std=IMAGENET_STD)
-        lib = FusedPipeline(fmt, ColorSpace.BT_709, ColorRange.MPEG,
-                            (OUT, OUT), output=out, kernel="torch",
-                            compute="highest")
-        ms = cuda_ms(lambda: kern(*planes, **kw))
-        plain = cuda_ms(lambda: plain_fn(*planes, **kw))
-        library = cuda_ms(lambda: lib(*planes))
-        ms2 = cuda_ms(lambda: kern(*planes, **kw))
+        direct = [cuda_ms(lambda: fc._direct_resize_rgb(y, *chroma, **kw))]
+        band = [cuda_ms(lambda: kern(y, *chroma, **kw)) for _ in range(2)]
+        direct.append(cuda_ms(lambda: fc._direct_resize_rgb(y, *chroma,
+                                                             **kw)))
         bound, by, nbytes = kernel_bound(
-            BATCH, SRC_H, SRC_W, OUT, OUT, 1 if out == "rgb_u8" else 4,
-            *rates)
-        kernel_ms = min(ms, ms2)
-        log(f"time {layout} {out} 1080p->224 b{BATCH}: kernel {ms:.4f} / "
-            f"{ms2:.4f} ms per batch "
-            f"({1e3 * kernel_ms / BATCH:.3f} us/frame), "
-            f"{nbytes / BATCH:.0f} B/frame, "
-            f"{nbytes / kernel_ms / 1e6:.1f} GB/s vs bound {bound:.4f} ms "
-            f"({by}; {100 * bound / kernel_ms:.1f}% of bound); plain "
-            f"{plain:.4f} ms; kernel='torch' path {library:.4f} ms")
-        rec[out] = dict(ms=kernel_ms, plain_ms=plain, library_ms=library,
-                        bound_ms=bound, bound_by=by)
+            BATCH, h, w, OUT, OUT, 1 if out == "rgb_u8" else 4, *rates)
+        ms, direct_ms = min(band), min(direct)
+        line = (f"time {layout} {out} {h}x{w}->{OUT} b{BATCH}: band "
+                f"{band[0]:.4f} / {band[1]:.4f} ms per batch "
+                f"({1e3 * ms / BATCH:.3f} us/frame), "
+                f"{nbytes / ms / 1e6:.1f} GB/s, {100 * bound / ms:.1f}% of "
+                f"bound {bound:.4f} ms ({by}); direct {direct[0]:.4f} / "
+                f"{direct[1]:.4f} ms ({100 * bound / direct_ms:.1f}% of "
+                f"bound); band {direct_ms / ms:.2f}x faster than direct "
+                f"({'yes' if ms < direct_ms else 'NO'})")
+        rec[out] = dict(ms=ms, direct_ms=direct_ms, bound_ms=bound,
+                        bound_by=by)
+        if others:
+            pipe = FusedPipeline(fmt, ColorSpace.BT_709, ColorRange.MPEG,
+                                 (OUT, OUT), output=out, kernel="torch",
+                                 compute="highest")
+            rec[out]["plain_ms"] = cuda_ms(lambda: plain_fn(y, *chroma, **kw))
+            rec[out]["torch_path_ms"] = cuda_ms(lambda: pipe(y, *chroma))
+            line += (f"; plain {rec[out]['plain_ms']:.4f} ms; "
+                     f"kernel='torch' path {rec[out]['torch_path_ms']:.4f} "
+                     f"ms; library: none (no single PyTorch call computes "
+                     f"4:2:0 Lanczos resize + CSC)")
+        log(line)
     return rec
+
+
+def sweep_plans(device, rates) -> None:
+    """Time the band kernel (planar, rgb_u8) under other plans (tile width,
+    ring depth, rows per band, producer warps) at 1080p and 2160p; prints
+    one line per plan."""
+    import functools
+    import itertools
+
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+
+    chosen = fc.band_plan
+    try:
+        for h, w in ((SRC_H, SRC_W), (2160, 3840)):
+            y, u, v = _seeded_yuv(BATCH, h, w, seed=7, device=device)
+            bound = kernel_bound(BATCH, h, w, OUT, OUT, 1, *rates)[0]
+            for cols, stages, rows, producers in itertools.product(
+                    (224, 112), (2, 3), (2, 6), (1, 2)):
+                fc.band_plan = functools.partial(
+                    chosen, max_cols=cols, stages=stages, max_rows=rows,
+                    producers=producers)
+                ms = cuda_ms(lambda: fc.fused_yuv420_resize_rgb(
+                    y, u, v, out_h=OUT, out_w=OUT))
+                log(f"sweep {h}p rgb_u8 cols<={cols} stages={stages} "
+                    f"rows<={rows} producers={producers}: "
+                    f"{ms:.4f} ms ({100 * bound / ms:.1f}% of bound; "
+                    f"{_plan_line(h, w, 1, fc.band_plan)})")
+    finally:
+        fc.band_plan = chosen
+
+
+#: parts of the band kernel cut out of a copy of its source, to time what
+#: the rest costs alone: (text, replacement) pairs
+VARIANTS = {
+    "copies only": [  # no horizontal or vertical pass
+        ("    if (col < ncols && i < ncy) {", "    if (false) {"),
+        ("    } else if (col < ncols) {", "    } else if (false) {"),
+        ("  if (col >= ncols) return;", "  return;")],
+    "sums only": [  # the producers signal without copying
+        ("      copy_vec<VEC>(d + q, s + q);", "      ;")],
+}
+
+
+def time_variants(device, rates) -> None:
+    """The band kernel beside its VARIANTS at the timed shapes (planar,
+    rgb_u8), each built from a copy of the sources into a temporary
+    directory."""
+    import ctypes
+
+    from videoprocessingframework_torch.csrc import build as kbuild
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+
+    src = (kbuild._HERE / "fused_resize_csc.cu").read_text()
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        procs = {}
+        for name, subs in VARIANTS.items():
+            text = src
+            for old, new in subs:
+                require(old in text, f"variant {name!r}: {old.strip()!r}")
+                text = text.replace(old, new)
+            cu = f"{tmp}/{len(procs)}.cu"
+            with open(cu, "w") as f:
+                f.write(text)
+            others = [str(x) for x in kbuild.SOURCES
+                      if x.name != "fused_resize_csc.cu"]
+            so = f"{tmp}/lib{len(procs)}.so"
+            procs[name] = (subprocess.Popen(
+                [kbuild.nvcc(), *kbuild.NVCC_FLAGS, cu, *others, "-o", so],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True), so)
+        libs = {"whole": kbuild.load_kernels()}
+        try:
+            for name, (proc, so) in procs.items():
+                err = proc.communicate(timeout=600)[1]
+                require(proc.returncode == 0,
+                        f"variant {name!r} build: {err[-2000:]}")
+                libs[name] = kbuild.bind(ctypes.CDLL(so))
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        whole = kbuild.load_kernels
+        try:
+            for h, w in ((SRC_H, SRC_W), (2160, 3840)):
+                y, u, v = _seeded_yuv(BATCH, h, w, seed=7, device=device)
+                bound = kernel_bound(BATCH, h, w, OUT, OUT, 1, *rates)[0]
+                for name, lib in libs.items():
+                    kbuild.load_kernels = lambda lib=lib: lib
+                    ms = cuda_ms(lambda: fc.fused_yuv420_resize_rgb(
+                        y, u, v, out_h=OUT, out_w=OUT))
+                    log(f"variant {h}p rgb_u8 {name}: {ms:.4f} ms "
+                        f"({100 * bound / ms:.1f}% of bound)")
+        finally:
+            kbuild.load_kernels = whole
 
 
 # ---- phase 5 -------------------------------------------------------------------
@@ -731,10 +910,13 @@ def main() -> int:
     worst_u8 = check_kernel(device)
     log(f"phase 3 ok: worst u8 kernel-vs-plain error {worst_u8:.0f}")
     times = time_kernel(device, rates)
+    time_kernel(device, rates, h=2160, w=3840, others=False)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
         run = main_path(device, missing, tmp)
     conv = converter_path(device, rates)
     time_kernel(device, rates, layout="nv12")  # phase 7
+    sweep_plans(device, rates)  # phase 8
+    time_variants(device, rates)
 
     t = times["normalized"]
     c = conv["times"]["nv12"]
@@ -749,7 +931,9 @@ def main() -> int:
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
+        "library_ms": None,
+        "direct_ms": t["direct_ms"],
+        "torch_path_ms": t["torch_path_ms"],
     }, {
         "name": "csc_rgb_planar",
         "route": "cuda",
