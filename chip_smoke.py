@@ -16,9 +16,11 @@ Phases, each of which raises on failure:
    golden, planar and NV12 × rgb_u8 / rgb_f32 / normalized, at
    1080p→224² ×32, 2160p→224² ×4 and 464×848→61×45 ×2.
 4. Timings (CUDA events, warm-up, median): the direct and band kernels
-   in turns (direct, band, band, direct) at 1080p→224² ×32 and
-   2160p→224² ×32, beside the bound, the plain version and the
-   kernel="torch" path.
+   in turns (direct, band, band, direct), planar: at 1080p→224² and
+   2160p→224² ×32 beside the plain version and the kernel="torch" path;
+   at 1080p→224² ×1, 464×848→61×45 ×32 and the upscale
+   240×320→1080×1920 ×32; each beside the bound and, where the windows
+   skip source rows, a bound that counts only the rows they read.
 5. Main path: decode pool → FusedPipeline(kernel="cuda", normalized) →
    ResNet-50 (bf16, seeded weights), with the kernel's launch count taken
    over that run alone. Without libav the pool's upload loop is fed
@@ -34,8 +36,6 @@ Phases, each of which raises on failure:
    alone; kernel timings beside the bound and the plain version.
 7. Timings of fused_resize_csc on NV12 input at 1080p→224² ×32 (direct
    and band in turns, as phase 4).
-8. What holds the band kernel: its time under 16 other plans, and with
-   its copies or its sums cut out (two more builds), at 1080p and 2160p.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -312,16 +312,21 @@ def cuda_ms(fn, warmup=3, reps=20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def kernel_bound(b, h, w, oh, ow, out_bytes, mem_rate, flop_rate):
-    """(bound ms, bound_by, bytes) of one call: each input byte read once,
-    each output byte written once; FLOPs from the tap counts."""
+def _flops(b, h, w, oh, ow):
+    """FLOPs of one call, from the tap counts."""
     from videoprocessingframework_torch.ops.fused_cuda import tap_tables
 
     t = tap_tables(h, w, oh, ow, "lanczos")
     k = {name: wt.shape[1] for name, (_, wt) in t.items()}
     macs = (k["rows_y"] * (k["cols_y"] + 1)
             + 2 * k["rows_c"] * (k["cols_c"] + 1) + 9)
-    flops = 2.0 * macs * b * oh * ow
+    return 2.0 * macs * b * oh * ow
+
+
+def kernel_bound(b, h, w, oh, ow, out_bytes, mem_rate, flop_rate):
+    """(bound ms, bound_by, bytes) of one call: each input byte read once,
+    each output byte written once; FLOPs from the tap counts."""
+    flops = _flops(b, h, w, oh, ow)
     nbytes = b * (h * w + 2 * (h // 2) * (w // 2)) + b * 3 * oh * ow * \
         out_bytes
     t_bytes, t_ops = nbytes / mem_rate, flops / flop_rate
@@ -329,25 +334,48 @@ def kernel_bound(b, h, w, oh, ow, out_bytes, mem_rate, flop_rate):
         "bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
-def _plan_line(h, w, step, plan_fn=None) -> str:
-    """The band plan of an h×w→224² batch, with the blocks an SM holds."""
-    from videoprocessingframework_torch.csrc import build as kbuild
+def window_bound(b, h, w, oh, ow, out_bytes, mem_rate, flop_rate):
+    """(bound ms, bytes) of one planar call counting only what the
+    windows read: the source rows that hold a nonzero weight, in the
+    32-byte sectors (from each row's start) that hold a nonzero column,
+    and each output byte once. Where the windows skip source rows, as at
+    2160p→224², this is below ``kernel_bound``."""
+    from videoprocessingframework_torch.ops.resize import (
+        chroma_collapse,
+        resize_matrix,
+    )
+
+    def plane(rm, cm):
+        rows = np.count_nonzero((rm != 0).any(0))
+        cols = np.flatnonzero((cm != 0).any(0))
+        return rows * 32 * len(np.unique(cols // 32))
+
+    rm, cm = resize_matrix(h, oh), resize_matrix(w, ow)
+    nbytes = b * (plane(rm, cm)
+                  + 2 * plane(chroma_collapse(rm), chroma_collapse(cm))) \
+        + b * 3 * oh * ow * out_bytes
+    t_bytes, t_ops = nbytes / mem_rate, _flops(b, h, w, oh, ow) / flop_rate
+    return 1e3 * max(t_bytes, t_ops), nbytes
+
+
+def _plan_line(y, chroma, oh, ow) -> str:
+    """The band plan the wrapper takes for these planes, with the blocks
+    an SM's shared memory holds."""
     from videoprocessingframework_torch.ops import fused_cuda as fc
 
-    p = (plan_fn or fc.band_plan)(h, w, OUT, OUT, "lanczos", step, 16, 16)
-    per_sm = kbuild.load_kernels().vpf_fused_resize_csc_occupancy(
-        step, 0, p.threads, p.smem)
+    p = fc.plan_for(y, *chroma, out_h=oh, out_w=ow)
     return (f"plan: {p.rows} rows x {p.cols} cols per block, "
-            f"{p.n_bands * p.n_tiles * BATCH} blocks of {p.threads} threads "
-            f"({p.producers} producer warps), "
-            f"{per_sm} per SM, chunks of {p.chunk} rows x {p.stages} stages, "
-            f"{p.smem} B shared")
+            f"{p.n_bands * p.n_tiles * y.shape[0]} blocks of {p.threads} "
+            f"threads ({fc.PRODUCERS} producer warps), chunks of {p.chunk} "
+            f"rows x {fc.STAGES} stages, copies of {p.vec_y} / {p.vec_c} B, "
+            f"{p.smem} B shared (an SM's shared memory holds "
+            f"{233_472 // (p.smem + 1024)} such blocks)")
 
 
-def time_kernel(device, rates, layout="planar", h=SRC_H, w=SRC_W,
-                others=True) -> dict:
+def time_kernel(device, rates, layout="planar", b=BATCH, h=SRC_H, w=SRC_W,
+                oh=OUT, ow=OUT, others=True) -> dict:
     """The direct and band kernels in turns (direct, band, band, direct)
-    at h×w→224² ×32, beside the bound and, with ``others``, the plain
+    at h×w→oh×ow ×b, beside the bound and, with ``others``, the plain
     version and the kernel="torch" path."""
     from videoprocessingframework_torch.core.enums import (
         ColorRange,
@@ -361,7 +389,7 @@ def time_kernel(device, rates, layout="planar", h=SRC_H, w=SRC_W,
         IMAGENET_STD,
     )
 
-    y, u, v = _seeded_yuv(BATCH, h, w, seed=7, device=device)
+    y, u, v = _seeded_yuv(b, h, w, seed=7, device=device)
     if layout == "planar":
         fmt, chroma = PixelFormat.YUV420, (u, v)
         kern = fc.fused_yuv420_resize_rgb
@@ -370,22 +398,21 @@ def time_kernel(device, rates, layout="planar", h=SRC_H, w=SRC_W,
         fmt, chroma = PixelFormat.NV12, (_interleave(u, v),)
         kern = fc.fused_nv12_resize_rgb
         plain_fn = fc.fused_nv12_resize_rgb_ref
-    log(f"time {layout} {h}x{w}->{OUT}x{OUT} "
-        f"{_plan_line(h, w, 1 if layout == 'planar' else 2)}")
+    log(f"time {layout} {h}x{w}->{oh}x{ow} {_plan_line(y, chroma, oh, ow)}")
     rec = {}
     for out in ("rgb_u8", "normalized"):
-        kw = dict(out_h=OUT, out_w=OUT, output=out, mean=IMAGENET_MEAN,
+        kw = dict(out_h=oh, out_w=ow, output=out, mean=IMAGENET_MEAN,
                   std=IMAGENET_STD)
         direct = [cuda_ms(lambda: fc._direct_resize_rgb(y, *chroma, **kw))]
         band = [cuda_ms(lambda: kern(y, *chroma, **kw)) for _ in range(2)]
         direct.append(cuda_ms(lambda: fc._direct_resize_rgb(y, *chroma,
                                                              **kw)))
-        bound, by, nbytes = kernel_bound(
-            BATCH, h, w, OUT, OUT, 1 if out == "rgb_u8" else 4, *rates)
+        out_bytes = 1 if out == "rgb_u8" else 4
+        bound, by, nbytes = kernel_bound(b, h, w, oh, ow, out_bytes, *rates)
         ms, direct_ms = min(band), min(direct)
-        line = (f"time {layout} {out} {h}x{w}->{OUT} b{BATCH}: band "
+        line = (f"time {layout} {out} {h}x{w}->{oh}x{ow} b{b}: band "
                 f"{band[0]:.4f} / {band[1]:.4f} ms per batch "
-                f"({1e3 * ms / BATCH:.3f} us/frame), "
+                f"({1e3 * ms / b:.3f} us/frame), "
                 f"{nbytes / ms / 1e6:.1f} GB/s, {100 * bound / ms:.1f}% of "
                 f"bound {bound:.4f} ms ({by}); direct {direct[0]:.4f} / "
                 f"{direct[1]:.4f} ms ({100 * bound / direct_ms:.1f}% of "
@@ -393,9 +420,18 @@ def time_kernel(device, rates, layout="planar", h=SRC_H, w=SRC_W,
                 f"({'yes' if ms < direct_ms else 'NO'})")
         rec[out] = dict(ms=ms, direct_ms=direct_ms, bound_ms=bound,
                         bound_by=by)
+        if layout == "planar":
+            wbound, wbytes = window_bound(b, h, w, oh, ow, out_bytes,
+                                          *rates)
+            if wbytes < nbytes:
+                line += (f"; bound from the rows the windows read "
+                         f"{wbound:.4f} ms ({wbytes} B): band "
+                         f"{100 * wbound / ms:.1f}%, direct "
+                         f"{100 * wbound / direct_ms:.1f}% of it")
+                rec[out]["window_bound_ms"] = wbound
         if others:
             pipe = FusedPipeline(fmt, ColorSpace.BT_709, ColorRange.MPEG,
-                                 (OUT, OUT), output=out, kernel="torch",
+                                 (oh, ow), output=out, kernel="torch",
                                  compute="highest")
             rec[out]["plain_ms"] = cuda_ms(lambda: plain_fn(y, *chroma, **kw))
             rec[out]["torch_path_ms"] = cuda_ms(lambda: pipe(y, *chroma))
@@ -405,101 +441,6 @@ def time_kernel(device, rates, layout="planar", h=SRC_H, w=SRC_W,
                      f"4:2:0 Lanczos resize + CSC)")
         log(line)
     return rec
-
-
-def sweep_plans(device, rates) -> None:
-    """Time the band kernel (planar, rgb_u8) under other plans (tile width,
-    ring depth, rows per band, producer warps) at 1080p and 2160p; prints
-    one line per plan."""
-    import functools
-    import itertools
-
-    from videoprocessingframework_torch.ops import fused_cuda as fc
-
-    chosen = fc.band_plan
-    try:
-        for h, w in ((SRC_H, SRC_W), (2160, 3840)):
-            y, u, v = _seeded_yuv(BATCH, h, w, seed=7, device=device)
-            bound = kernel_bound(BATCH, h, w, OUT, OUT, 1, *rates)[0]
-            for cols, stages, rows, producers in itertools.product(
-                    (224, 112), (2, 3), (2, 6), (1, 2)):
-                fc.band_plan = functools.partial(
-                    chosen, max_cols=cols, stages=stages, max_rows=rows,
-                    producers=producers)
-                ms = cuda_ms(lambda: fc.fused_yuv420_resize_rgb(
-                    y, u, v, out_h=OUT, out_w=OUT))
-                log(f"sweep {h}p rgb_u8 cols<={cols} stages={stages} "
-                    f"rows<={rows} producers={producers}: "
-                    f"{ms:.4f} ms ({100 * bound / ms:.1f}% of bound; "
-                    f"{_plan_line(h, w, 1, fc.band_plan)})")
-    finally:
-        fc.band_plan = chosen
-
-
-#: parts of the band kernel cut out of a copy of its source, to time what
-#: the rest costs alone: (text, replacement) pairs
-VARIANTS = {
-    "copies only": [  # no horizontal or vertical pass
-        ("    if (col < ncols && i < ncy) {", "    if (false) {"),
-        ("    } else if (col < ncols) {", "    } else if (false) {"),
-        ("  if (col >= ncols) return;", "  return;")],
-    "sums only": [  # the producers signal without copying
-        ("      copy_vec<VEC>(d + q, s + q);", "      ;")],
-}
-
-
-def time_variants(device, rates) -> None:
-    """The band kernel beside its VARIANTS at the timed shapes (planar,
-    rgb_u8), each built from a copy of the sources into a temporary
-    directory."""
-    import ctypes
-
-    from videoprocessingframework_torch.csrc import build as kbuild
-    from videoprocessingframework_torch.ops import fused_cuda as fc
-
-    src = (kbuild._HERE / "fused_resize_csc.cu").read_text()
-    with tempfile.TemporaryDirectory(dir=".") as tmp:
-        procs = {}
-        for name, subs in VARIANTS.items():
-            text = src
-            for old, new in subs:
-                require(old in text, f"variant {name!r}: {old.strip()!r}")
-                text = text.replace(old, new)
-            cu = f"{tmp}/{len(procs)}.cu"
-            with open(cu, "w") as f:
-                f.write(text)
-            others = [str(x) for x in kbuild.SOURCES
-                      if x.name != "fused_resize_csc.cu"]
-            so = f"{tmp}/lib{len(procs)}.so"
-            procs[name] = (subprocess.Popen(
-                [kbuild.nvcc(), *kbuild.NVCC_FLAGS, cu, *others, "-o", so],
-                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-                text=True), so)
-        libs = {"whole": kbuild.load_kernels()}
-        try:
-            for name, (proc, so) in procs.items():
-                err = proc.communicate(timeout=600)[1]
-                require(proc.returncode == 0,
-                        f"variant {name!r} build: {err[-2000:]}")
-                libs[name] = kbuild.bind(ctypes.CDLL(so))
-        finally:
-            for proc, _ in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        whole = kbuild.load_kernels
-        try:
-            for h, w in ((SRC_H, SRC_W), (2160, 3840)):
-                y, u, v = _seeded_yuv(BATCH, h, w, seed=7, device=device)
-                bound = kernel_bound(BATCH, h, w, OUT, OUT, 1, *rates)[0]
-                for name, lib in libs.items():
-                    kbuild.load_kernels = lambda lib=lib: lib
-                    ms = cuda_ms(lambda: fc.fused_yuv420_resize_rgb(
-                        y, u, v, out_h=OUT, out_w=OUT))
-                    log(f"variant {h}p rgb_u8 {name}: {ms:.4f} ms "
-                        f"({100 * bound / ms:.1f}% of bound)")
-        finally:
-            kbuild.load_kernels = whole
 
 
 # ---- phase 5 -------------------------------------------------------------------
@@ -910,13 +851,15 @@ def main() -> int:
     worst_u8 = check_kernel(device)
     log(f"phase 3 ok: worst u8 kernel-vs-plain error {worst_u8:.0f}")
     times = time_kernel(device, rates)
-    time_kernel(device, rates, h=2160, w=3840, others=False)
+    time_kernel(device, rates, h=2160, w=3840)
+    for b, h, w, oh, ow in ((1, SRC_H, SRC_W, OUT, OUT),
+                            (BATCH, 464, 848, 61, 45),
+                            (BATCH, 240, 320, SRC_H, SRC_W)):
+        time_kernel(device, rates, b=b, h=h, w=w, oh=oh, ow=ow, others=False)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
         run = main_path(device, missing, tmp)
     conv = converter_path(device, rates)
     time_kernel(device, rates, layout="nv12")  # phase 7
-    sweep_plans(device, rates)  # phase 8
-    time_variants(device, rates)
 
     t = times["normalized"]
     c = conv["times"]["nv12"]

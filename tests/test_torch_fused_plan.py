@@ -15,7 +15,6 @@
 """
 
 import dataclasses
-import functools
 import pathlib
 import re
 
@@ -57,7 +56,7 @@ def _check_plan(plan, h, w, out_h, out_w, method, step):
     assert plan.cols <= fc.MAX_COLS
     assert plan.threads <= fc.MAX_THREADS and plan.threads % 32 == 0
     # one consumer thread per column, then the producer warps
-    assert plan.cols <= plan.threads - 32 * plan.producers < plan.cols + 32
+    assert plan.cols <= plan.threads - 32 * fc.PRODUCERS < plan.cols + 32
     # every output row's window lies in its band's row list, in order
     for key, which, k_max in (("rows_y", 0, plan.max_rows_y),
                               ("rows_c", 1, plan.max_rows_c)):
@@ -86,11 +85,14 @@ def _check_plan(plan, h, w, out_h, out_w, method, step):
             assert lo % vec == 0 and nbytes % vec == 0
             assert lo >= 0 and lo + nbytes <= src_bytes[key]
             pitch = plan.pitch_y if col == 0 else plan.pitch_c
-            assert nbytes <= pitch and pitch % 16 == 0
+            assert nbytes + fc.ROW_PAD <= pitch and pitch % 16 == 0
             ox = np.arange(t * plan.cols, min(out_w, (t + 1) * plan.cols))
             first = start[ox] * st - lo
             last = (start[ox] + k - 1) * st + (st - 1) - lo
             assert first.min() >= 0 and last.max() < nbytes
+            # the kernel reads a window as three 4-byte loads from the
+            # 4-byte boundary below it: they stay inside the row's pitch
+            assert ((first & ~3) + 12).max() <= pitch
     # shared memory: stages, then H (luma, U, V), the row weights and the
     # window positions
     ky = tabs["rows_y"][1].shape[1]
@@ -98,7 +100,7 @@ def _check_plan(plan, h, w, out_h, out_w, method, step):
     row_bytes = max(plan.pitch_y, plan.pitch_c * (2 if step == 1 else 1))
     assert plan.stage_bytes == plan.chunk * row_bytes
     assert plan.stage_bytes % 16 == 0
-    assert plan.off_hy == plan.stages * plan.stage_bytes
+    assert plan.off_hy == fc.STAGES * plan.stage_bytes
     assert plan.off_hu == plan.off_hy + 4 * plan.max_rows_y * plan.cols
     assert plan.off_hv == plan.off_hu + 4 * plan.max_rows_c * plan.cols
     assert plan.off_tab % 16 == 0
@@ -108,7 +110,7 @@ def _check_plan(plan, h, w, out_h, out_w, method, step):
     assert plan.off_bar % 8 == 0
     assert plan.off_rows == plan.off_tab + 4 * plan.tab_words
     assert plan.off_rows + 4 * (plan.band_stride - 2) <= plan.off_bar
-    assert plan.smem == plan.off_bar + 8 * (2 * plan.stages + 1)
+    assert plan.smem == plan.off_bar + 8 * (2 * fc.STAGES + 1)
     # the band tables: padded row weights, then the window positions
     (_, rwy), (_, rwc) = tabs["rows_y"], tabs["rows_c"]
     for oy in range(out_h):
@@ -150,8 +152,44 @@ def test_band_plan_lists_only_needed_rows():
     assert ny.sum() < 0.7 * 2160
 
 
+@pytest.mark.parametrize("shape,min_bands,rows", [
+    ((464, 848, 61, 45), 13, 4),
+    ((464, 848, 61, 45), 99, 1),
+    ((1080, 1920, 224, 224), 7, 6),
+    ((1080, 1920, 224, 224), 198, 1),
+])
+def test_band_plan_cuts_at_least_min_bands(shape, min_bands, rows):
+    h, w, out_h, out_w = shape
+    plan = fc.band_plan(h, w, out_h, out_w, "lanczos", 1, 16,
+                        8 if (w // 2) % 16 else 16, min_bands)
+    _check_plan(plan, h, w, out_h, out_w, "lanczos", 1)
+    assert plan.rows == rows
+    assert plan.n_bands >= min(min_bands, out_h)
+
+
+@pytest.mark.parametrize("b,h,w,out_h,out_w,rows", [
+    (32, 464, 848, 61, 45, 4),
+    (4, 464, 848, 61, 45, 1),
+    (32, 1080, 1920, 224, 224, 6),   # the main path: the grid is full
+    (1, 1080, 1920, 224, 224, 1),
+])
+def test_wrapper_plan_fills_the_card(b, h, w, out_h, out_w, rows,
+                                     monkeypatch):
+    """The wrapper cuts shorter bands where the batch's grid would give
+    each of an H100's 132 SMs fewer than MIN_BLOCKS_PER_SM blocks."""
+    monkeypatch.setattr(fc, "_sm_count", lambda device: 132)
+    y, u, v = (torch.from_numpy(p) for p in _yuv(b, h, w, seed=1))
+    uv = torch.stack([u, v], -1).flatten(-2)
+    for chroma in ((u, v), (uv,)):
+        plan = fc.plan_for(y, *chroma, out_h=out_h, out_w=out_w)
+        assert plan.rows == rows
+        blocks = plan.n_bands * plan.n_tiles * b
+        assert rows == 1 or blocks >= fc.MIN_BLOCKS_PER_SM * 132
+
+
 def test_band_plan_fields_match_the_kernel():
-    """PLAN_FIELDS is the order of the C entry point's PlanField enum."""
+    """PLAN_FIELDS is the order of the C entry point's PlanField enum,
+    and the plan's ring depth and producer warps are the kernel's."""
     src = (pathlib.Path(fc.__file__).parent.parent / "csrc"
            / "fused_resize_csc.cu").read_text()
     body = re.search(r"enum PlanField \{(.*?)\};", src, re.S).group(1)
@@ -159,12 +197,17 @@ def test_band_plan_fields_match_the_kernel():
     assert names == list(fc.PLAN_FIELDS) + ["count"]
     plan = fc.band_plan(1080, 1920, 224, 224)
     assert len(plan.fields()) == len(fc.PLAN_FIELDS)
+    for name in ("STAGES", "PRODUCERS"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert int(m.group(1)) == getattr(fc, name)
 
 
 def test_band_plan_rejects_bad_step_and_stages():
+    """The chroma step is 1 or 2; the ring depth is the kernel's, not the
+    caller's."""
     with pytest.raises(ValueError):
         fc.band_plan(64, 96, 8, 8, "lanczos", 3)
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError):
         fc.band_plan(64, 96, 8, 8, "lanczos", 1, stages=5)
 
 
@@ -297,14 +340,15 @@ def _nv12(u, v):
 
 
 EMULATED = [
-    # (b, h, w, out_h, out_w, method, plan overrides, copy widths)
-    (2, 48, 64, 24, 40, "lanczos", {}, (16, 16)),
-    (1, 96, 128, 40, 56, "bilinear", {"max_rows": 3, "chunk": 1}, (16, 16)),
-    (1, 96, 128, 40, 56, "nearest", {}, (4, 2)),
-    (1, 36, 52, 72, 300, "lanczos", {"max_rows": 5}, (4, 2)),  # 2 tiles, up
-    (1, 432, 768, 24, 24, "lanczos", {"chunk": 2}, (16, 16)),  # sparse rows
-    (1, 62, 98, 17, 29, "lanczos", {"max_rows": 4, "stages": 2,
-                                     "producers": 3}, (2, 1)),
+    # (b, h, w, out_h, out_w, method, copy widths)
+    (2, 48, 64, 24, 40, "lanczos", (16, 16)),
+    (1, 96, 128, 40, 56, "bilinear", (16, 16)),
+    (1, 96, 128, 40, 56, "nearest", (4, 2)),
+    (1, 36, 52, 72, 300, "lanczos", (4, 2)),  # 3 tiles, upscale
+    (1, 432, 768, 24, 24, "lanczos", (16, 16)),  # sparse rows
+    (1, 62, 98, 17, 29, "lanczos", (2, 1)),  # a ragged last band
+    (1, 16, 16384, 8, 24, "lanczos", (16, 16)),  # one row per chunk
+    (1, 64, 96, 20, 113, "lanczos", (8, 4)),  # a ragged last tile
 ]
 
 
@@ -312,9 +356,9 @@ EMULATED = [
 @pytest.mark.parametrize("case", EMULATED, ids=lambda c: f"{c[1]}x{c[2]}"
                          f"-{c[3]}x{c[4]}-{c[5]}")
 def test_emulated_plan_matches_plain(case, layout):
-    b, h, w, oh, ow, method, over, (vec_y, vec_c) = case
+    b, h, w, oh, ow, method, (vec_y, vec_c) = case
     step = 1 if layout == "planar" else 2
-    plan = fc.band_plan(h, w, oh, ow, method, step, vec_y, vec_c, **over)
+    plan = fc.band_plan(h, w, oh, ow, method, step, vec_y, vec_c)
     _check_plan(plan, h, w, oh, ow, method, step)
     y, u, v = _yuv(b, h, w, seed=h + ow)
     chroma = (u, v) if step == 1 else (_nv12(u, v),)
@@ -353,21 +397,18 @@ def test_emulated_plan_matches_pallas_interpret():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("over", [{}, {"producers": 1, "stages": 4},
-                                  {"producers": 3, "chunk": 1, "max_rows": 3,
-                                   "max_cols": 32}])
-def test_band_kernel_equals_direct_on_card(over, monkeypatch):
+def test_band_kernel_equals_direct_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    if over:
-        monkeypatch.setattr(fc, "band_plan",
-                            functools.partial(fc.band_plan, **over))
     for b, h, w, oh, ow, method in [
         (4, 1080, 1920, 224, 224, "lanczos"),
         (2, 464, 848, 61, 45, "lanczos"),
         (1, 240, 320, 1080, 1920, "lanczos"),
         (2, 270, 482, 100, 300, "bilinear"),
         (2, 96, 128, 40, 56, "nearest"),
+        (2, 62, 98, 17, 29, "lanczos"),  # a ragged last band
+        (2, 16, 16384, 8, 24, "lanczos"),  # one row per chunk
+        (2, 64, 96, 20, 113, "lanczos"),  # a ragged last tile
     ]:
         y, u, v = (torch.from_numpy(p).cuda() for p in _yuv(b, h, w, seed=3))
         uv = torch.stack([u, v], -1).flatten(-2)

@@ -56,11 +56,7 @@ def build() -> pathlib.Path:
 @functools.lru_cache(maxsize=1)
 def load_kernels() -> C.CDLL:
     """The kernel library with its C signatures bound."""
-    return bind(C.CDLL(str(build())))
-
-
-def bind(lib: C.CDLL) -> C.CDLL:
-    """Set the C signatures of a library built from these sources."""
+    lib = C.CDLL(str(build()))
     p, i, i64 = C.c_void_p, C.c_int, C.c_int64
     fused = ([p, p, p, i, i, i64, i64, i64, i64] + [p, p, i] * 4
              + [p, i, i, i, C.POINTER(C.c_float)])
@@ -70,9 +66,6 @@ def bind(lib: C.CDLL) -> C.CDLL:
     fn = lib.vpf_fused_resize_csc_direct
     fn.restype = i
     fn.argtypes = fused + [p]
-    fn = lib.vpf_fused_resize_csc_occupancy
-    fn.restype = i
-    fn.argtypes = [i, i, i, i]
     fn = lib.vpf_csc_rgb_planar
     fn.restype = i
     fn.argtypes = [p, p, p, i, i, i, i, i64, i64, i64, i64, p, i,

@@ -66,6 +66,10 @@ namespace {
 constexpr int KY_MAX = 6;  // luma taps (rows, columns) the band kernel holds
 constexpr int KC_MAX = 4;  // chroma taps (half-grid collapsed)
 constexpr int MAX_THREADS = 512;
+// Ring depth and producer warps of the band kernel (ops/fused_cuda.py:
+// STAGES, PRODUCERS; its plan lays shared memory out for these).
+constexpr int STAGES = 2;
+constexpr int PRODUCERS = 2;
 
 struct Taps {
   const int32_t* start;  // (n_out,) first source index of the window
@@ -90,10 +94,10 @@ struct Args {
 
 // The band plan's scalars, in the order of ops/fused_cuda.py:PLAN_FIELDS.
 enum PlanField {
-  P_ROWS, P_COLS, P_N_BANDS, P_N_TILES, P_CHUNK, P_STAGES, P_VEC_Y, P_VEC_C,
+  P_ROWS, P_COLS, P_N_BANDS, P_N_TILES, P_CHUNK, P_VEC_Y, P_VEC_C,
   P_PITCH_Y, P_PITCH_C, P_STAGE_BYTES, P_BAND_STRIDE, P_MAX_ROWS_Y,
   P_OFF_HY, P_OFF_HU, P_OFF_HV, P_OFF_TAB, P_TAB_WORDS, P_OFF_ROWS,
-  P_OFF_BAR, P_SMEM, P_THREADS, P_PRODUCERS, P_COUNT
+  P_OFF_BAR, P_SMEM, P_THREADS, P_COUNT
 };
 
 struct Band {
@@ -106,10 +110,9 @@ struct Band {
   const int32_t* tile_cols;  // (n_tiles, 4): staged bytes lo, count; luma
                              // then chroma (NV12: interleaved UV bytes)
   int rows, cols;            // output rows per band, columns per tile
-  int producers;             // producer warps
-  int chunk, stages;         // source rows per staged chunk, ring depth
+  int chunk;                 // source rows per staged chunk
   int vec_y, vec_c;          // copy width (bytes)
-  int pitch_y, pitch_c;      // shared bytes per staged row
+  int pitch_y, pitch_c;      // shared bytes per staged row (its span + 16)
   int stage_bytes, band_stride, max_rows_y, tab_words;
   int off_hy, off_hu, off_hv, off_tab, off_rows, off_bar;  // shared bytes
 };
@@ -300,7 +303,10 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst, int pitch,
 }
 
 // Bytes [off, off + 8) of a staged row as two words (byte 0 lowest), from
-// three 4-byte shared loads at the 4-byte boundary below `off`.
+// three 4-byte shared loads at the 4-byte boundary below `off`. A window
+// ends inside the row's staged span, so these loads end at most 11 bytes
+// past it; the plan pads every staged row's pitch by 16 bytes, which no
+// thread writes, so the loads never leave the row.
 __device__ __forceinline__ void window8(const uint8_t* row, int off,
                                         uint32_t& w0, uint32_t& w1) {
   const uint32_t* q = reinterpret_cast<const uint32_t*>(row + (off & ~3));
@@ -318,8 +324,8 @@ __device__ __forceinline__ float byte_f(uint32_t w, int k) {
 }
 
 // One block per (frame, band of output rows, tile of output columns). Its
-// last `producers` warps copy: the band's table, then the band's luma rows
-// and then its chroma rows in chunks, into a ring of `stages` shared-memory
+// last PRODUCERS warps copy: the band's table, then the band's luma rows
+// and then its chroma rows in chunks, into a ring of STAGES shared-memory
 // buffers, as fast as the consumers free them. The other warps consume:
 // each chunk's horizontal pass as it lands, then the vertical pass. A full
 // and an empty mbarrier per ring slot order the two sides; no block-wide
@@ -330,7 +336,7 @@ template <int STEP, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
 fused_resize_csc_band_kernel(const Args a, const Band p) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int nct = blockDim.x - 32 * p.producers;  // consumer threads
+  const int nct = blockDim.x - 32 * PRODUCERS;  // consumer threads
   const int ox0 = blockIdx.x * p.cols;
   const int oy0 = blockIdx.y * p.rows;
   const int64_t b = blockIdx.z;
@@ -349,12 +355,12 @@ fused_resize_csc_band_kernel(const Args a, const Band p) {
   float* hv = reinterpret_cast<float*>(smem + p.off_hv);
   float* twy = reinterpret_cast<float*>(smem + p.off_tab);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.off_bar);
-  uint64_t* empty = full + p.stages;
-  uint64_t* tab_ready = empty + p.stages;
+  uint64_t* empty = full + STAGES;
+  uint64_t* tab_ready = empty + STAGES;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < p.stages; ++s) {
-      mbar_init(&full[s], 32 * p.producers);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32 * PRODUCERS);
       mbar_init(&empty[s], nct);
     }
     mbar_init(tab_ready, 32);
@@ -363,7 +369,7 @@ fused_resize_csc_band_kernel(const Args a, const Band p) {
 
   if (threadIdx.x >= nct) {  // the producer warps
     const int pt = threadIdx.x - nct, lane = pt & 31, warp = pt >> 5;
-    const int nw = p.producers;
+    const int nw = PRODUCERS;
     // the band's table (row weights, window positions; the first producer
     // warp), and its source row list, which the copies read row by row
     if (warp == 0) {
@@ -381,9 +387,9 @@ fused_resize_csc_band_kernel(const Args a, const Band p) {
     const uint8_t* ysrc = a.y + b * a.y_bs + tc.x;
     const int64_t coff = b * a.c_bs + tc.z;
     for (int c = 0; c < n; ++c) {
-      const int slot = c % p.stages;
-      if (c >= p.stages)  // the slot's last chunk has been resampled
-        mbar_wait(&empty[slot], (c / p.stages - 1) & 1);
+      const int slot = c % STAGES;
+      if (c >= STAGES)  // the slot's last chunk has been resampled
+        mbar_wait(&empty[slot], (c / STAGES - 1) & 1);
       uint8_t* buf = smem + slot * p.stage_bytes;
       int vec;
       if (c < ncy) {  // luma rows first, then chroma (planar: U, V blocks)
@@ -430,8 +436,8 @@ fused_resize_csc_band_kernel(const Args a, const Band p) {
   }
 
   for (int i = 0; i < n; ++i) {
-    const int slot = i % p.stages;
-    mbar_wait(&full[slot], (i / p.stages) & 1);
+    const int slot = i % STAGES;
+    mbar_wait(&full[slot], (i / STAGES) & 1);
     const uint8_t* buf = smem + slot * p.stage_bytes;
     // horizontal pass, H[row][column]: each window's bytes come from three
     // 4-byte shared loads (byte loads cost a shared-memory wavefront each)
@@ -592,12 +598,11 @@ VPF_KERNEL_API int vpf_fused_resize_csc(VPF_FUSED_PARAMS, const int32_t* plan,
   Args a;
   if (!make_args(a, VPF_FUSED_ARGS) || kr_y > KY_MAX || kc_y > KY_MAX ||
       kr_c > KC_MAX || kc_c > KC_MAX || plan[P_ROWS] <= 0 ||
-      plan[P_COLS] <= 0 || plan[P_PRODUCERS] < 1 || plan[P_PRODUCERS] > 4 ||
-      plan[P_THREADS] % 32 != 0 ||
-      plan[P_THREADS] - 32 * plan[P_PRODUCERS] < plan[P_COLS] ||
+      plan[P_COLS] <= 0 || plan[P_THREADS] % 32 != 0 ||
+      plan[P_THREADS] - 32 * PRODUCERS < plan[P_COLS] ||
       plan[P_OFF_BAR] % 8 != 0 ||
       plan[P_THREADS] > MAX_THREADS || plan[P_CHUNK] <= 0 ||
-      plan[P_STAGES] < 2 || plan[P_STAGES] > 4 || !valid_vec(plan[P_VEC_Y]) ||
+      !valid_vec(plan[P_VEC_Y]) ||
       !valid_vec(plan[P_VEC_C]) || plan[P_TAB_WORDS] % 4 != 0 ||
       plan[P_N_BANDS] > 65535 || plan[P_N_BANDS] * plan[P_ROWS] < out_h ||
       plan[P_N_TILES] * plan[P_COLS] < out_w)
@@ -608,9 +613,7 @@ VPF_KERNEL_API int vpf_fused_resize_csc(VPF_FUSED_PARAMS, const int32_t* plan,
   p.tile_cols = tile_cols;
   p.rows = plan[P_ROWS];
   p.cols = plan[P_COLS];
-  p.producers = plan[P_PRODUCERS];
   p.chunk = plan[P_CHUNK];
-  p.stages = plan[P_STAGES];
   p.vec_y = plan[P_VEC_Y];
   p.vec_c = plan[P_VEC_C];
   p.pitch_y = plan[P_PITCH_Y];
@@ -655,35 +658,6 @@ VPF_KERNEL_API int vpf_fused_resize_csc_direct(VPF_FUSED_PARAMS, void* stream) {
     else launch_direct<2, 2>(a, batch, s);
   }
   return (int)cudaGetLastError();
-}
-
-// Blocks of the band kernel that one SM holds at once for this thread
-// count and shared memory (negative: the cudaError_t of the query).
-VPF_KERNEL_API int vpf_fused_resize_csc_occupancy(int chroma_step, int mode,
-                                                  int threads, int smem) {
-  void (*kerns[2][3])(const Args, const Band) = {
-      {fused_resize_csc_band_kernel<1, 0>, fused_resize_csc_band_kernel<1, 1>,
-       fused_resize_csc_band_kernel<1, 2>},
-      {fused_resize_csc_band_kernel<2, 0>, fused_resize_csc_band_kernel<2, 1>,
-       fused_resize_csc_band_kernel<2, 2>}};
-  if ((chroma_step != 1 && chroma_step != 2) || mode < 0 || mode > 2)
-    return -(int)cudaErrorInvalidValue;
-  auto kern = kerns[chroma_step - 1][mode];
-  int blocks = 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
-                                                      smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return -(int)e;
-  }
-  return blocks;
 }
 
 VPF_KERNEL_API const char* vpf_cuda_error_string(int err) {

@@ -32,7 +32,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -132,17 +132,25 @@ MAX_HALO = 0.05
 KY_MAX, KC_MAX = 6, 4
 MAX_COLS = 112      # output columns per tile, one consumer thread each
 MAX_THREADS = 512   # threads per block: the consumers, then the producers
-PRODUCERS = 2       # producer warps, which copy the source rows
 MAX_ROWS = 8        # output rows per band
-STAGES = 2          # staged chunks in the ring (chip_smoke.py phase 8)
+#: blocks per SM the grid should hold where shorter bands can give them: a
+#: block copies and sums its chunks in turn, so a grid of a few blocks per
+#: SM leaves the card waiting on each block's latency
+MIN_BLOCKS_PER_SM = 3
 CHUNK_BYTES = 16384  # source bytes per staged chunk to aim for
+MAX_CHUNK = 8       # source rows per staged chunk, at most
+#: ring depth and producer warps, compiled into the kernel
+#: (csrc/fused_resize_csc.cu: STAGES, PRODUCERS)
+STAGES, PRODUCERS = 2, 2
+#: bytes past its span that each staged row's pitch holds: a window's three
+#: 4-byte loads may end 11 bytes past the span (the kernel's window8)
+ROW_PAD = 16
 #: the plan's scalars in the order the C entry point reads them
 #: (csrc/fused_resize_csc.cu: PlanField)
-PLAN_FIELDS = ("rows", "cols", "n_bands", "n_tiles", "chunk", "stages",
-               "vec_y", "vec_c", "pitch_y", "pitch_c", "stage_bytes",
-               "band_stride", "max_rows_y", "off_hy", "off_hu", "off_hv",
-               "off_tab", "tab_words", "off_rows", "off_bar", "smem",
-               "threads", "producers")
+PLAN_FIELDS = ("rows", "cols", "n_bands", "n_tiles", "chunk", "vec_y",
+               "vec_c", "pitch_y", "pitch_c", "stage_bytes", "band_stride",
+               "max_rows_y", "off_hy", "off_hu", "off_hv", "off_tab",
+               "tab_words", "off_rows", "off_bar", "smem", "threads")
 
 
 def copy_width(ptrs: Sequence[int], strides: Sequence[int],
@@ -173,18 +181,17 @@ class BandPlan:
     window positions.
     ``tile_cols[t]`` = (luma lo, luma bytes, chroma lo, chroma bytes): the
     staged span of a source row, aligned to the copy width (NV12: bytes of
-    the interleaved UV row). Shared memory, in bytes from 0: ``stages``
+    the interleaved UV row). Shared memory, in bytes from 0: ``STAGES``
     chunk buffers of ``stage_bytes`` (``chunk`` rows at ``pitch_y``, or
     ``chunk`` U then ``chunk`` V rows at ``pitch_c``; NV12: UV rows), then
     H for luma, U and V (float32, ``cols`` wide), the band's table
     (16-byte aligned), the band's source row lists (``band_rows[n][2:]``)
     and the ring's mbarriers (full and empty per slot, then one for the
-    table; 8 bytes each). A window's bytes are read as three 4-byte loads
-    from the 4-byte boundary below it, which may reach a few bytes past
-    the staged span: the H rows that follow the chunk buffers keep those
-    reads inside the block's shared memory. A block's last ``producers``
-    warps copy; the ``threads - 32 * producers`` threads before them take
-    one output column each.
+    table; 8 bytes each). A pitch is the widest span rounded up to 16
+    bytes, plus ``ROW_PAD``: a window's bytes are read as three 4-byte
+    loads from the 4-byte boundary below it, and those stay inside the
+    row. A block's last ``PRODUCERS`` warps copy; the ``threads - 32 *
+    PRODUCERS`` threads before them take one output column each.
     """
 
     rows: int
@@ -192,7 +199,6 @@ class BandPlan:
     n_bands: int
     n_tiles: int
     chunk: int
-    stages: int
     vec_y: int
     vec_c: int
     pitch_y: int
@@ -210,7 +216,6 @@ class BandPlan:
     off_bar: int
     smem: int
     threads: int
-    producers: int
     band_rows: np.ndarray
     row_pos: np.ndarray
     band_tab: np.ndarray
@@ -271,28 +276,25 @@ def _band_tab(rwy, rwc, pos_y, pos_c, rows, words) -> np.ndarray:
 @lru_cache(maxsize=64)
 def band_plan(h: int, w: int, out_h: int, out_w: int,
               method: str = "lanczos", step: int = 1, vec_y: int = 16,
-              vec_c: int = 16, *, max_rows: int = MAX_ROWS,
-              chunk: Optional[int] = None, stages: int = STAGES,
-              producers: int = PRODUCERS,
-              max_cols: int = MAX_COLS) -> BandPlan:
+              vec_c: int = 16, min_bands: int = 1) -> BandPlan:
     """Plan the band kernel for one shape, chroma step (1 planar, 2 NV12)
-    and pair of copy widths.
+    and pair of copy widths, in at least ``min_bands`` bands where bands of
+    one row or more allow it (the wrapper asks for the bands that give its
+    grid ``MIN_BLOCKS_PER_SM`` blocks per SM).
 
-    Tiles split the output width evenly into at most ``max_cols`` columns
-    (and as few as ``MAX_THREADS`` allows); a chunk holds about
-    ``CHUNK_BYTES`` of source rows. The plan takes the most output rows per band (up to
-    ``max_rows``) whose shared memory lets five blocks share an SM, else
-    four, three, two or one, narrowing the tiles where even one band row
-    does not fit; it raises where nothing fits. First it looks only at
+    Tiles split the output width evenly into at most ``MAX_COLS`` columns;
+    a chunk holds about ``CHUNK_BYTES`` of source rows (1 to
+    ``MAX_CHUNK``). The plan takes the most output rows per band (up to
+    ``MAX_ROWS`` and ``out_h // min_bands``) whose shared memory lets five
+    blocks share an SM, else four, three, two or one, narrowing the tiles
+    where even one band row does not fit; it raises where nothing fits.
+    First it looks only at
     bands that restage at most ``MAX_HALO`` of the luma rows. (More blocks
     per SM hide more of each block's copy and sum latency, and a band's
-    overlap with the next is read twice: ``chip_smoke.py`` phase 8.)
+    overlap with the next is read twice.)
     """
-    if step not in (1, 2) or stages not in (2, 3, 4) or \
-            producers not in (1, 2, 3, 4):
-        raise ValueError(
-            f"chroma step must be 1 or 2 (got {step}), stages 2 to 4 (got "
-            f"{stages}), producers 1 to 4 (got {producers})")
+    if step not in (1, 2):
+        raise ValueError(f"chroma step must be 1 or 2, got {step}")
     tabs = tap_tables(h, w, out_h, out_w, method)
     (rsy, rwy), (rsc, rwc) = tabs["rows_y"], tabs["rows_c"]
     (csy, cwy), (csc, cwc) = tabs["cols_y"], tabs["cols_c"]
@@ -310,36 +312,35 @@ def band_plan(h: int, w: int, out_h: int, out_w: int,
         return bands[rows]
 
     needed = len(np.unique(rsy[:, None] + np.arange(ky)))  # luma rows read
+    top = max(1, min(MAX_ROWS, out_h // max(1, min_bands)))
     for halo in (MAX_HALO, None):
         for budget in SMEM_BUDGETS:
-            first = max(-(-out_w // max_cols),
-                        -(-out_w // (MAX_THREADS - 32 * producers)))
-            for n_tiles in range(first, out_w + 1):
+            for n_tiles in range(-(-out_w // MAX_COLS), out_w + 1):
                 cols = -(-out_w // n_tiles)
                 if -(-out_w // cols) != n_tiles:
                     continue  # the same tiles as a smaller count
                 ty = _tile_cols(csy, cwy.shape[1], cols, 1, vec_y)
                 tc = _tile_cols(csc, cwc.shape[1], cols, step, vec_c)
-                pitch_y = _up(int(ty[:, 1].max()), 16)
-                pitch_c = _up(int(tc[:, 1].max()), 16)
+                pitch_y = _up(int(ty[:, 1].max()), 16) + ROW_PAD
+                pitch_c = _up(int(tc[:, 1].max()), 16) + ROW_PAD
                 row_bytes = max(pitch_y, pitch_c * (2 if step == 1 else 1))
-                n_chunk = chunk or max(1, min(8, CHUNK_BYTES // row_bytes))
+                n_chunk = max(1, min(MAX_CHUNK, CHUNK_BYTES // row_bytes))
                 stage_bytes = n_chunk * row_bytes
-                for rows in range(min(max_rows, out_h), 0, -1):
+                for rows in range(top, 0, -1):
                     ly, py, lc, pc = band_lists(rows)
                     if halo is not None and \
                             sum(map(len, ly)) > (1 + halo) * needed:
                         continue
                     my = max(len(r) for r in ly)
                     mc = max(len(r) for r in lc)
-                    off_hy = stages * stage_bytes
+                    off_hy = STAGES * stage_bytes
                     off_hu = off_hy + 4 * my * cols
                     off_hv = off_hu + 4 * mc * cols
                     off_tab = _up(off_hv + 4 * mc * cols, 16)
                     tab_words = _up(rows * (8 + 4 + 2), 4)
                     off_rows = off_tab + 4 * tab_words
                     off_bar = _up(off_rows + 4 * (my + mc), 8)
-                    smem = off_bar + 8 * (2 * stages + 1)
+                    smem = off_bar + 8 * (2 * STAGES + 1)
                     if smem > budget:
                         continue
                     band_rows = np.zeros((len(ly), 2 + my + mc), np.int32)
@@ -349,15 +350,14 @@ def band_plan(h: int, w: int, out_h: int, out_w: int,
                         band_rows[n, 2 + my:2 + my + len(rc)] = rc
                     return BandPlan(
                         rows=rows, cols=cols, n_bands=len(ly),
-                        n_tiles=n_tiles, chunk=n_chunk, stages=stages,
-                        vec_y=vec_y, vec_c=vec_c, pitch_y=pitch_y,
-                        pitch_c=pitch_c, stage_bytes=stage_bytes,
+                        n_tiles=n_tiles, chunk=n_chunk, vec_y=vec_y,
+                        vec_c=vec_c, pitch_y=pitch_y, pitch_c=pitch_c,
+                        stage_bytes=stage_bytes,
                         band_stride=2 + my + mc, max_rows_y=my,
                         max_rows_c=mc, off_hy=off_hy, off_hu=off_hu,
                         off_hv=off_hv, off_tab=off_tab, tab_words=tab_words,
                         off_rows=off_rows, off_bar=off_bar, smem=smem,
-                        threads=_up(cols, 32) + 32 * producers,
-                        producers=producers,
+                        threads=_up(cols, 32) + 32 * PRODUCERS,
                         band_rows=band_rows, row_pos=np.stack([py, pc]),
                         band_tab=_band_tab(rwy, rwc, py, pc, rows, tab_words),
                         tile_cols=np.concatenate([ty, tc], axis=1),
@@ -486,6 +486,11 @@ def _device_plan(plan: BandPlan, device: torch.device):
                  for a in (plan.band_rows, plan.band_tab, plan.tile_cols))
 
 
+@lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -503,6 +508,28 @@ def _nv12_chroma(y, uv, output):
     base = uv.data_ptr()
     return (base, base + 1), 2, (uv.stride(0), uv.stride(1),
                                  2 * uv.stride(2))
+
+
+def _plan(y, c_ptrs, step, cstrides, out_h, out_w, method) -> BandPlan:
+    """The band plan for these planes: copy widths from their pointers and
+    strides, and bands enough for MIN_BLOCKS_PER_SM blocks per SM in the
+    batch's grid."""
+    b, h, w = y.shape
+    n = 0 if b > 1 else 1  # the batch stride matters only for a 2nd frame
+    vec_y = copy_width((y.data_ptr(),), (y.stride(0), y.stride(1))[n:], w)
+    vec_c = copy_width(c_ptrs[:3 - step], cstrides[n:2], (w // 2) * step)
+    min_bands = -(-MIN_BLOCKS_PER_SM * _sm_count(y.device)
+                  // (max(b, 1) * -(-out_w // MAX_COLS)))
+    return band_plan(h, w, out_h, out_w, method, step, vec_y, vec_c,
+                     min_bands)
+
+
+def plan_for(y, *chroma, out_h: int, out_w: int,
+             method: str = "lanczos") -> BandPlan:
+    """The plan the band kernel takes for CUDA planes: (y, u, v) planar or
+    (y, uv) NV12."""
+    layout = _planar_chroma if len(chroma) == 2 else _nv12_chroma
+    return _plan(y, *layout(y, *chroma, "rgb_u8"), out_h, out_w, method)
 
 
 def _launch(y, c_ptrs, step, cstrides, *, out_h, out_w, space, rng, method,
@@ -524,13 +551,7 @@ def _launch(y, c_ptrs, step, cstrides, *, out_h, out_w, space, rng, method,
     if y.stride(-1) != 1 or cstrides[-1] != step:
         raise ValueError("planes must be contiguous along their rows")
     if not direct:
-        # the batch stride matters only where there is a second frame
-        n = 0 if b > 1 else 1
-        vec_y = copy_width((y.data_ptr(),), (y.stride(0), y.stride(1))[n:],
-                           w)
-        vec_c = copy_width(c_ptrs[:3 - step], cstrides[n:2],
-                           (w // 2) * step)
-        plan = band_plan(h, w, out_h, out_w, method, step, vec_y, vec_c)
+        plan = _plan(y, c_ptrs, step, cstrides, out_h, out_w, method)
     lib = build.load_kernels()
     tabs = _device_tables(h, w, out_h, out_w, method, y.device)
     m, off, mean32, inv_std = _csc_consts(space, rng, swap, mean, std)
