@@ -14,7 +14,10 @@ Phases, each of which raises on failure:
 3. fused_resize_csc (the band kernel) vs its first version (the direct
    entry point: 0 codes, 0.0), vs its plain version and vs the float64
    golden, planar and NV12 × rgb_u8 / rgb_f32 / normalized, at
-   1080p→224² ×32, 2160p→224² ×4 and 464×848→61×45 ×2.
+   1080p→224² ×32, 2160p→224² ×4, 464×848→61×45 ×2, and at the shapes
+   the serving path launches (phase 8): 1080p→224² at every smaller
+   bucket (×1-16, where the plan cuts shorter bands) and 1080p→512² ×8
+   (the FCN's input); each line names the plan it took.
 4. Timings (CUDA events, warm-up, median): the direct and band kernels
    in turns (direct, band, band, direct), planar: at 1080p→224² and
    2160p→224² ×32 beside the plain version and the kernel="torch" path;
@@ -36,8 +39,26 @@ Phases, each of which raises on failure:
    alone; kernel timings beside the bound and the plain version.
 7. Timings of fused_resize_csc on NV12 input at 1080p→224² ×32 (direct
    and band in turns, as phase 4).
+8. Serving path: InferenceServer (pinned staging, CUDA events) over
+   seeded packed 1080p YUV420 frames → FusedPipeline(kernel="cuda",
+   normalized) → ViT-S (bf16), 4 clients × 64 requests, max_batch 32; and
+   over 8-frame clips → video-ResNet-50 (attention head, bf16), 2 clients
+   × 16 clips, max_batch 4. Each run: finite logits of the right shape,
+   the kernel's launches (counted over that run alone) ≥ its batches,
+   served logits vs a direct call, bf16 vs float32, requests/s and the
+   latency / queue-wait / dispatch p50 and p99. Direct forwards of
+   VideoViT-S and FCN-ResNet (8 frames from the kernel at 512²), bf16 vs
+   float32, with device ms per batch.
+9. Analysis ops on seeded 1080p luma with known whole-pixel motion, one
+   cut and jitter: lucas_kanade_flow / global_translations recover the
+   shifts (≤0.1 px), warp_image reaches ≥35 dB, detect_cuts finds the
+   cut, stabilize_clip reduces the jitter; every op on CUDA against the
+   same function on the CPU at 270×480 (cuDNN TF32 off for the CUDA
+   side); the 1080p checks and ms per call (CUDA events) at torch's
+   default, cuDNN TF32 on.
 
-The line before the last is the per-kernel JSON record; the last line is
+The line before the last is the per-kernel JSON record (launches of
+fused_resize_csc counted over phases 5 and 8); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -62,6 +83,17 @@ CSC_REPLACES = "videoprocessingframework_tpu/ops/pallas_kernels.py:96"
 BATCH = 32
 SRC_W, SRC_H = 1920, 1080
 OUT = 224
+#: FCN input size (phase 8), from the kernel at SEG×SEG
+SEG = 512
+#: (batch, height, width, out height, out width) of the fused_resize_csc
+#: checks (phase 3): the main path, 4K, a small frame, then what the
+#: serving path launches (phase 8): every smaller bucket of the image
+#: server (the clip server's kernel batches are 8, 16 and 32 frames),
+#: whose plans cut shorter bands, and the FCN's 8 frames at SEG²
+KERNEL_CHECKS = [(BATCH, SRC_H, SRC_W, OUT, OUT), (4, 2160, 3840, OUT, OUT),
+                 (2, 464, 848, 61, 45)] + [
+    (b, SRC_H, SRC_W, OUT, OUT) for b in (1, 2, 4, 8, 16)] + [
+    (8, SRC_H, SRC_W, SEG, SEG)]
 #: (batch, height, width) of the csc_rgb_planar checks (phase 6); the
 #: kernel takes 8 columns a thread at the first two, 2 at 270×482 and 4
 #: at 30×100
@@ -235,13 +267,16 @@ def check_kernel(device) -> float:
     from videoprocessingframework_torch.ops import fused_cuda as fc
 
     worst, worst_direct = 0.0, 0.0
-    for b, h, w, oh, ow in [(BATCH, SRC_H, SRC_W, OUT, OUT),
-                            (4, 2160, 3840, OUT, OUT), (2, 464, 848, 61, 45)]:
-        y, u, v = _seeded_yuv(b, h, w, seed=h, device=device)
+    for b, h, w, oh, ow in KERNEL_CHECKS:
+        y, u, v = _seeded_yuv(b, h, w, seed=h + b + oh, device=device)
         uv = _interleave(u, v)
         gold = _golden(*(p[:2].cpu().numpy() for p in (y, u, v)), oh, ow)
         for layout in ("planar", "nv12"):
             chroma = (u, v) if layout == "planar" else (uv,)
+            p = fc.plan_for(y, *chroma, out_h=oh, out_w=ow)
+            log(f"check {layout} {h}x{w}->{oh}x{ow} b{b}: plan {p.rows} "
+                f"rows x {p.cols} cols, {p.n_bands} bands x {p.n_tiles} "
+                f"tiles")
             for out in ("rgb_u8", "rgb_f32", "normalized"):
                 kw = dict(out_h=oh, out_w=ow, output=out)
                 if layout == "planar":
@@ -446,16 +481,54 @@ def time_kernel(device, rates, layout="planar", b=BATCH, h=SRC_H, w=SRC_W,
 # ---- phase 5 -------------------------------------------------------------------
 
 
-def _resnet(device, dtype=torch.bfloat16):
-    from videoprocessingframework_torch.models import resnet50
+#: logits as max |diff| / max |logit|: served under load vs the same
+#: items served again as one batch (the same bucket and the collector's
+#: own thread and library handles, and every op computes each row alone:
+#: the same bits); served vs a direct ``infer_fn`` call on the caller's
+#: thread (a batch of the same size, but other cuBLAS / cuDNN handles,
+#: which may take other algorithms, so bf16 rounds differently); bf16 vs
+#: float32
+SERVED_TOL = 0.0
+DIRECT_TOL = 0.03
+BF16_TOL = 0.05
 
-    torch.manual_seed(0)
-    model = resnet50(dtype=dtype).eval()
-    with torch.no_grad():  # bn3 scales start at 0 (Flax init): make the
-        for name, p in model.named_parameters():  # residual branches live
+
+def _seeded_model(build, device, seed):
+    """``build(dtype)`` under a fixed seed, in bf16, with a float32 copy
+    of the same weights; ResNet bn3 scales start at 0 (Flax init), so
+    they are drawn to keep the residual branches live."""
+    torch.manual_seed(seed)
+    model = build(torch.bfloat16).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
             if name.endswith("bn3.weight"):
                 p.uniform_(0.5, 1.5)
-    return model.to(device, memory_format=torch.channels_last)
+    ref = build(torch.float32).eval()
+    ref.load_state_dict(model.state_dict())
+    return (model.to(device, memory_format=torch.channels_last),
+            ref.to(device, memory_format=torch.channels_last))
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()
+            ).item()
+
+
+def _bf16_vs_f32(name, model, ref, x) -> float:
+    """bf16 logits vs float32 logits (TF32 off) on the same input."""
+    with torch.no_grad():
+        got = model(x)
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            want = ref(x)
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+    rel = _rel(got, want)
+    log(f"{name} bf16 vs float32: max abs diff / max |logit| = {rel:.4f} "
+        f"(tol {BF16_TOL})")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    require(rel <= BF16_TOL, f"{name} bf16 vs float32")
+    return rel
 
 
 def _throughput(feed, consume) -> float:
@@ -479,6 +552,7 @@ def main_path(device, libav_missing: str, tmpdir: str) -> dict:
         HostBatchRing,
         NativeDecodePool,
     )
+    from videoprocessingframework_torch.models import resnet50
     from videoprocessingframework_torch.ops import fused_cuda as fc
     from videoprocessingframework_torch.ops.fused import FusedPipeline
 
@@ -514,7 +588,7 @@ def main_path(device, libav_missing: str, tmpdir: str) -> dict:
     space, rng = ColorSpace.BT_709, ColorRange.MPEG
     pipe = FusedPipeline(PixelFormat.YUV420, space, rng, (OUT, OUT),
                          output="normalized", device=device, kernel="cuda")
-    model = _resnet(device)
+    model, ref = _seeded_model(lambda dt: resnet50(dtype=dt), device, 0)
     first = {}
 
     def post(y, u, v):
@@ -566,16 +640,7 @@ def main_path(device, libav_missing: str, tmpdir: str) -> dict:
         require(err <= TOL["normalized"], "first batch kernel vs plain")
 
         # bf16 model vs the same weights in float32 on the first batch
-        ref = _resnet(device, torch.float32)
-        ref.load_state_dict(model.state_dict())
-        torch.backends.cudnn.allow_tf32 = False
-        l32 = ref(x)
-        torch.backends.cudnn.allow_tf32 = True
-        l16 = model(x)
-        rel = ((l16 - l32).abs().max() / l32.abs().max()).item()
-        log(f"ResNet-50 bf16 vs float32 logits on the first batch: max abs "
-            f"diff / max |logit| = {rel:.4f} (tol 0.05)")
-        require(rel <= 0.05, "bf16 vs float32 logits")
+        _bf16_vs_f32("ResNet-50", model, ref, x)
 
         # device-resident: the pipeline's own output layout as input
         # 3 calls keep ~900 launches queued behind the sleep, inside the
@@ -833,6 +898,427 @@ def converter_path(device, rates) -> dict:
             "times": times}
 
 
+# ---- phase 8 -------------------------------------------------------------------
+
+
+def _serve(name, srv, items, clients, out_shape) -> dict:
+    """``clients`` threads submit their share of ``items`` (all at once,
+    then wait); the kernel's launches are counted over this run alone."""
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+
+    results = [None] * len(items)
+    errors = []
+    share = -(-len(items) // clients)
+
+    def client(lo, hi):
+        try:
+            futs = [(i, srv.submit(items[i])) for i in range(lo, hi)]
+            for i, f in futs:
+                results[i] = f.result(timeout=300)
+        except Exception as e:  # reported below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client,
+                                args=(k * share,
+                                      min(len(items), (k + 1) * share)))
+               for k in range(clients)]
+    torch.cuda.synchronize()
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = fc.LAUNCHES["fused_resize_csc"]
+    require(not errors, f"{name}: {errors[:1]}")
+    require(not any(t.is_alive() for t in threads), f"{name}: client hung")
+    snap = srv.snapshot()
+    require(snap["requests"] == len(items), f"{name}: {snap['requests']} "
+            f"requests served of {len(items)}")
+    for r in results:
+        require(tuple(r.shape) == out_shape
+                and r.device.type == srv.device.type,
+                f"{name}: result {tuple(r.shape)} on {r.device}")
+    require(bool(torch.isfinite(torch.stack(results)).all()),
+            f"{name}: non-finite logits")
+    require(launches >= snap["batches"],
+            f"{name}: {launches} kernel launches for {snap['batches']} "
+            f"batches")
+    rps = len(items) / wall
+    log(f"{name}: {snap['requests']} requests from {clients} clients in "
+        f"{snap['batches']} batches (mean batch {snap['mean_batch']:.2f}, "
+        f"padded items {snap['padded_items']}), {rps:.1f} requests/s "
+        f"(host clock); latency p50 {snap['latency_ms_p50']:.2f} ms p99 "
+        f"{snap['latency_ms_p99']:.2f} ms; queue wait p50 "
+        f"{snap['queue_wait_ms_p50']:.2f} p99 {snap['queue_wait_ms_p99']:.2f}"
+        f" ms; dispatch p50 {snap['dispatch_ms_p50']:.2f} p99 "
+        f"{snap['dispatch_ms_p99']:.2f} ms; fused_resize_csc launches "
+        f"{launches}; dispatch ms per batch: "
+        f"{', '.join(f'{d:.1f}' for d in srv.stats.dispatch_ms)}")
+    return dict(snap, launches=launches, requests_per_s=rps,
+                results=results)
+
+
+def _served_vs_direct(name, srv, served, items, infer_fn) -> None:
+    """``served`` (the first results of the load run) against the same
+    ``items`` served again as one batch, and against a direct
+    ``infer_fn`` call on this thread; each beside a control (the served
+    rows rolled by one item), which must exceed SERVED_TOL: a server that
+    handed a future another request's row fails the exact check. (The
+    direct check alone need not catch that: the clip model's logits of
+    different clips can lie closer than DIRECT_TOL.)"""
+    served = torch.stack(served)
+    again = torch.stack([f.result(timeout=300)
+                         for f in srv.submit_many(items)])
+    direct = infer_fn(torch.from_numpy(np.stack(items)).pin_memory())
+    rolled = served.roll(1, 0)
+    for ref, what, tol in ((again, "served again as one batch", SERVED_TOL),
+                           (direct, "a direct infer_fn call", DIRECT_TOL)):
+        rel, ctrl = _rel(served, ref), _rel(rolled, ref)
+        log(f"{name}: served logits of the first {len(items)} items vs "
+            f"{what}: max abs diff / max |logit| = {rel:.3g} (tol {tol}); "
+            f"control, rows rolled by one: {ctrl:.3g}")
+        require(rel <= tol, f"{name}: served vs {what}")
+        require(ctrl > SERVED_TOL, f"{name}: the control equals {what}: "
+                f"the check cannot tell items apart")
+
+
+def _packed_frames(n, rows, w, seed) -> np.ndarray:
+    """``n`` seeded packed YUV420 frames (n, rows, w) u8: noise over a
+    coarse pattern of 27 × 32 blocks a frame, so that frames still differ
+    after the resize to 224², as real ones do (noise alone averages to a
+    flat grey)."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 128, (n, rows, w), np.uint8)
+    coarse = rng.integers(0, 128, (n, 27, 32), np.uint8)
+    frames += coarse[:, (np.arange(rows) * 27) // rows][
+        :, :, (np.arange(w) * 32) // w]
+    return frames
+
+
+def _pipe_vs_plain(pipe, packed, got) -> None:
+    """``got``, ``pipe``'s output on packed YUV420 frames, against the
+    kernel's plain version on the same planes (TOL)."""
+    from videoprocessingframework_torch.core.enums import PixelFormat
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.ops.fused import unpack_yuv_planes
+
+    y, u, v, _, _ = unpack_yuv_planes(PixelFormat.YUV420,
+                                      (packed.to(got.device),))
+    want = fc.fused_yuv420_resize_rgb_ref(
+        y, u, v, out_h=pipe.out_h, out_w=pipe.out_w, output="normalized",
+        mean=pipe.mean, std=pipe.std).permute(0, 2, 3, 1)
+    err = (got - want).abs().max().item()
+    line = (f"FusedPipeline on {tuple(packed.shape)} packed YUV420 -> "
+            f"{pipe.out_h}x{pipe.out_w} normalized vs plain: max abs diff "
+            f"{err:.3g} (tol {TOL['normalized']})")
+    log(line)
+    require(tuple(got.shape) == tuple(want.shape)
+            and err <= TOL["normalized"], line)
+
+
+def _host_ms(fn, reps=5) -> float:
+    """Median host time of ``fn`` (its return, not its device work),
+    from an idle device."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def serving_path(device) -> dict:
+    """Phase 8: InferenceServer → FusedPipeline (the band kernel) → ViT-S
+    on 1080p frames, and → video-ResNet-50 on 8-frame clips; then direct
+    forwards of VideoViT-S and FCN."""
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+        PixelFormat,
+    )
+    from videoprocessingframework_torch.models import (
+        fcn_resnet,
+        video_resnet50,
+        video_vit_small,
+        vit_small,
+    )
+    from videoprocessingframework_torch.ops.fused import FusedPipeline
+    from videoprocessingframework_torch.serving import InferenceServer
+
+    rows, frames_per_clip = SRC_H * 3 // 2, 8
+    n_images, n_clips = 256, 32
+    pipe = FusedPipeline(PixelFormat.YUV420, ColorSpace.BT_709,
+                         ColorRange.MPEG, (OUT, OUT), output="normalized",
+                         device=device, kernel="cuda")
+    frames = _packed_frames(n_images, rows, SRC_W, seed=21)
+    vit, vit32 = _seeded_model(
+        lambda dt: vit_small(1000, dtype=dt, image_size=(OUT, OUT)), device,
+        1)
+    vres, vres32 = _seeded_model(
+        lambda dt: video_resnet50(400, "attention", dtype=dt,
+                                  frames=frames_per_clip), device, 2)
+
+    def infer_image(staging):
+        with torch.no_grad():
+            return vit(pipe(staging.to(device, non_blocking=True)))
+
+    def infer_clip(staging):
+        b = staging.shape[0]
+        x = staging.to(device, non_blocking=True).view(-1, rows, SRC_W)
+        with torch.no_grad():
+            return vres(pipe(x).view(b, frames_per_clip, OUT, OUT, 3))
+
+    out = {}
+    first = torch.from_numpy(frames[:BATCH]).pin_memory()
+    with InferenceServer(infer_image, (rows, SRC_W), np.uint8,
+                         max_batch=BATCH, max_wait_ms=5, device=device) as s:
+        t0 = time.perf_counter()
+        s.warmup()
+        log(f"image server warm-up ({len(s.buckets)} buckets): "
+            f"{time.perf_counter() - t0:.1f} s")
+        img = _serve("image server 1080p->fused_resize_csc->ViT-S bf16", s,
+                     list(frames), 4, (1000,))
+        _served_vs_direct("image server", s, img.pop("results")[:BATCH],
+                          list(frames[:BATCH]), infer_image)
+    x = pipe(first.to(device))
+    _pipe_vs_plain(pipe, first, x)
+    _bf16_vs_f32("ViT-S", vit, vit32, x)
+    with torch.no_grad():
+        img["model_ms"] = cuda_ms(lambda: vit(x), reps=5)
+    log(f"ViT-S bf16 device-resident: {img['model_ms']:.3f} ms per batch "
+        f"of {BATCH}")
+    spare = torch.empty(first.shape, dtype=torch.uint8).pin_memory()
+    copy_ms = _host_ms(lambda: [spare[i].copy_(torch.from_numpy(frames[i]))
+                                for i in range(BATCH)])
+    enqueue_ms = _host_ms(lambda: infer_image(first))
+    h2d_ms = cuda_ms(lambda: first.to(device, non_blocking=True), reps=5)
+    log(f"image server stages per batch of {BATCH}: the collector's copy "
+        f"into pinned staging {copy_ms:.2f} ms and infer_fn's enqueue "
+        f"{enqueue_ms:.2f} ms (host clock, median of 5); H2D {h2d_ms:.3f} "
+        f"ms, kernel: phase 4, ViT-S {img['model_ms']:.3f} ms (CUDA events)")
+    out["image"] = img
+
+    clips = frames.reshape(n_images // frames_per_clip, frames_per_clip,
+                           rows, SRC_W)[:n_clips]
+    with InferenceServer(infer_clip, clips.shape[1:], np.uint8, max_batch=4,
+                         max_wait_ms=5, device=device) as s:
+        t0 = time.perf_counter()
+        s.warmup()
+        log(f"clip server warm-up ({len(s.buckets)} buckets): "
+            f"{time.perf_counter() - t0:.1f} s")
+        clip = _serve("clip server 8x1080p->fused_resize_csc->video-"
+                      "ResNet-50 bf16", s, list(clips), 2, (400,))
+        _served_vs_direct("clip server", s, clip.pop("results")[:4],
+                          list(clips[:4]), infer_clip)
+    xc = x.view(4, frames_per_clip, OUT, OUT, 3)
+    _bf16_vs_f32("video-ResNet-50 (attention head)", vres, vres32, xc)
+    with torch.no_grad():
+        clip["model_ms"] = cuda_ms(lambda: vres(xc), reps=3)
+    log(f"video-ResNet-50 bf16 device-resident: {clip['model_ms']:.3f} ms "
+        f"per batch of 4 clips x {frames_per_clip} frames")
+    out["clip"] = clip
+
+    vvit, vvit32 = _seeded_model(
+        lambda dt: video_vit_small(400, dtype=dt, frames=frames_per_clip,
+                                   image_size=(OUT, OUT)), device, 3)
+    _bf16_vs_f32("VideoViT-S", vvit, vvit32, xc)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: vvit(xc), reps=5)
+    log(f"VideoViT-S bf16 device-resident: {ms:.3f} ms per batch of 4 "
+        f"clips x {frames_per_clip} frames")
+    pipe_seg = FusedPipeline(PixelFormat.YUV420, ColorSpace.BT_709,
+                             ColorRange.MPEG, (SEG, SEG), output="normalized",
+                             device=device, kernel="cuda")
+    xs = pipe_seg(first[:8].to(device))
+    _pipe_vs_plain(pipe_seg, first[:8], xs)
+    fcn, fcn32 = _seeded_model(lambda dt: fcn_resnet(21, dtype=dt), device, 4)
+    with torch.no_grad():
+        seg = fcn(xs)
+    require(tuple(seg.shape) == (8, SEG, SEG, 21),
+            f"FCN output {tuple(seg.shape)}")
+    _bf16_vs_f32("FCN-ResNet", fcn, fcn32, xs)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fcn(xs), reps=5)
+    log(f"FCN-ResNet bf16 device-resident: {ms:.3f} ms per batch of 8 at "
+        f"{SEG}x{SEG} (output (8, {SEG}, {SEG}, 21))")
+    return out
+
+
+# ---- phase 9 -------------------------------------------------------------------
+
+#: (dx, dy) of frame k+1 against frame k, whole pixels
+SHIFTS = [(3, -2), (-4, 1), (2, 2), (0, -3), (5, 0), (-1, -1), (1, 4),
+          (-3, 3)]
+
+
+def _texture(h, w, seed):
+    """Smooth seeded luma texture (0-255 float32, CPU): noise on a grid 8×
+    coarser, bicubic up, contrast set by its spread."""
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((1, 1, h // 8 + 4, w // 8 + 4), generator=g)
+    up = torch.nn.functional.interpolate(coarse, scale_factor=8,
+                                         mode="bicubic", align_corners=False)
+    t = up[0, 0, 16:16 + h, 16:16 + w]
+    t = (t - t.mean()) / t.std()
+    return (128.0 + 45.0 * t).clamp(0.0, 255.0)
+
+
+def _moving(h, w, offsets, seed, pad=32):
+    """u8 frames cut from one texture at the given whole-pixel offsets:
+    frame k holds the texture moved by offsets[k]."""
+    tex = _texture(h + 2 * pad, w + 2 * pad, seed)
+    return torch.stack([tex[pad - dy:pad - dy + h, pad - dx:pad - dx + w]
+                        for dx, dy in offsets]).round().to(torch.uint8)
+
+
+def _analysis_inputs(h, w):
+    """The seeded inputs of phase 9 at h×w, on the CPU."""
+    rng = np.random.default_rng(31)
+    path = np.cumsum([(0, 0)] + SHIFTS, axis=0)
+    jitter = rng.integers(-3, 4, (32, 2))
+    jitter[0] = 0
+    pan = [(k, 0) for k in range(16)]
+    shots = torch.cat([_moving(h, w, pan, 33),
+                       _moving(h, w, [(0, k) for k in range(16)], 34)])
+    return dict(seq=_moving(h, w, [tuple(p) for p in path], 32),
+                shots=shots, jittered=_moving(h, w, jitter.tolist(), 35))
+
+
+def _analysis_ops(inp, dev):
+    """Every analysis op once on ``inp`` moved to ``dev``."""
+    from videoprocessingframework_torch.ops import (
+        flow,
+        metrics,
+        scenecut,
+        stabilize,
+    )
+
+    seq = inp["seq"].to(dev)
+    prev, nxt = seq[:-1], seq[1:]
+    fl = flow.lucas_kanade_flow(prev, nxt)
+    warped = flow.warp_image(nxt, fl)
+    out = dict(flow=fl, warped=warped,
+               mid=flow.interpolate_midpoint(prev[:2], nxt[:2]),
+               steps=stabilize.global_translations(seq),
+               psnr=metrics.psnr(warped, prev),
+               ssim=metrics.ssim(warped, prev),
+               ms_ssim=metrics.ms_ssim(warped, prev),
+               scores=scenecut.scene_cut_scores(inp["shots"].to(dev)))
+    stab, corr = stabilize.stabilize_clip(inp["jittered"].numpy(), sigma=4.0,
+                                          device=dev)
+    out.update(stabilized=torch.from_numpy(stab),
+               correction=torch.from_numpy(corr))
+    return out
+
+
+#: CUDA vs CPU at 270×480 (float32 both; cuDNN TF32 off for the CUDA run):
+#: pixels of flow, codes of u8 frames (a rounding boundary), and for the
+#: metrics and scores an error relative to the largest value
+ANALYSIS_TOL = {"flow": 1e-3, "steps": 1e-3, "correction": 1e-3,
+                "warped": 1, "mid": 1, "stabilized": 1}
+ANALYSIS_REL_TOL = {"psnr": 1e-4, "ssim": 1e-4, "ms_ssim": 1e-4,
+                    "scores": 1e-4}
+
+
+def analysis_path(device) -> None:
+    """Phase 9: the analysis ops on seeded 1080p luma with known motion,
+    cuts and jitter; each against the same port function on the CPU at
+    270×480; ms per call by CUDA events."""
+    from videoprocessingframework_torch.ops import (
+        flow,
+        metrics,
+        scenecut,
+        stabilize,
+    )
+
+    small = _analysis_inputs(270, 480)
+    # float32 on both sides: the separable convolutions without TF32 for
+    # the comparison alone; the 1080p checks and timings below run at
+    # torch's default (cuDNN TF32 on), as users call the ops
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = _analysis_ops(small, device)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    want = _analysis_ops(small, torch.device("cpu"))
+    for k, tol in {**ANALYSIS_TOL, **ANALYSIS_REL_TOL}.items():
+        a, b = got[k].cpu().double(), want[k].double()
+        err = (a - b).abs().max().item()
+        rel = k in ANALYSIS_REL_TOL
+        if rel:
+            err /= b.abs().max().item()
+        log(f"analysis {k} 270x480: CUDA (TF32 off) vs CPU max "
+            f"{'relative ' if rel else ''}diff {err:.3g} (tol {tol})")
+        require(err <= tol, f"analysis {k}: CUDA vs CPU")
+
+    tf32 = "on" if torch.backends.cudnn.allow_tf32 else "off"
+    inp = {k: v.to(device) for k, v in
+           _analysis_inputs(SRC_H, SRC_W).items()}
+    seq, m = inp["seq"], 16
+    prev, nxt = seq[:-1], seq[1:]
+    fl = flow.lucas_kanade_flow(prev, nxt)
+    want = torch.tensor(SHIFTS, dtype=torch.float32, device=device)
+    med = stabilize.median(fl[:, m:-m, m:-m].reshape(len(SHIFTS), -1, 2))
+    steps = stabilize.global_translations(seq)
+    ferr = (med - want).abs().max().item()
+    serr = (steps - want).abs().max().item()
+    log(f"analysis 1080p (cuDNN TF32 {tf32}): "
+        f"lucas_kanade_flow on {len(SHIFTS)} pairs, interior median vs the "
+        f"known shift: max error {ferr:.4f} px; global_translations: "
+        f"{serr:.4f} px (tol 0.1)")
+    require(ferr <= 0.1 and serr <= 0.1, "recovered shift")
+    warped = flow.warp_image(nxt, fl)
+    p = metrics.psnr(warped[:, m:-m, m:-m], prev[:, m:-m, m:-m])
+    log(f"analysis 1080p: warp_image(next, flow) vs prev on the "
+        f"interior: PSNR min {p.min().item():.2f} dB (tol 35)")
+    require(p.min().item() >= 35.0, "warp PSNR")
+    mid = flow.interpolate_midpoint(prev[:2], nxt[:2])
+    require(mid.shape == prev[:2].shape and mid.dtype == torch.uint8,
+            "interpolate_midpoint shape")
+    s = metrics.ssim(prev, prev)
+    require(bool(torch.isinf(metrics.psnr(prev, prev)).all())
+            and (s - 1).abs().max().item() < 1e-5
+            and bool((metrics.ms_ssim(warped, prev) < 1).all()),
+            "metrics on equal and unequal frames")
+    cuts = scenecut.detect_cuts(scenecut.scene_cut_scores(inp["shots"]))
+    log(f"analysis 1080p: scene cuts in 32 frames: {cuts} (want [15])")
+    require(cuts == [15], "scene cut")
+    jit = inp["jittered"]
+    stab, _ = stabilize.stabilize_clip(jit.cpu().numpy(), sigma=4.0,
+                                       device=device)
+    raw = stabilize.global_translations(jit).abs().mean().item()
+    res = stabilize.global_translations(
+        torch.from_numpy(stab).to(device)).abs().mean().item()
+    log(f"analysis 1080p: stabilize_clip on 32 jittered frames: mean "
+        f"|frame-to-frame shift| {raw:.3f} px -> {res:.3f} px")
+    require(res < 0.35 * raw, "stabilisation removes jitter")
+
+    times = {
+        f"lucas_kanade_flow ({len(SHIFTS)} pairs)":
+            lambda: flow.lucas_kanade_flow(prev, nxt),
+        f"warp_image ({len(SHIFTS)} frames)":
+            lambda: flow.warp_image(nxt, fl),
+        "interpolate_midpoint (2 pairs)":
+            lambda: flow.interpolate_midpoint(prev[:2], nxt[:2]),
+        f"global_translations ({len(SHIFTS) + 1} frames)":
+            lambda: stabilize.global_translations(seq),
+        f"psnr ({len(SHIFTS)} pairs)": lambda: metrics.psnr(warped, prev),
+        f"ssim ({len(SHIFTS)} pairs)": lambda: metrics.ssim(warped, prev),
+        f"ms_ssim ({len(SHIFTS)} pairs)":
+            lambda: metrics.ms_ssim(warped, prev),
+        "scene_cut_scores (32 frames)":
+            lambda: scenecut.scene_cut_scores(inp["shots"]),
+    }
+    line = ", ".join(f"{k} {cuda_ms(fn, reps=5):.3f}"
+                     for k, fn in times.items())
+    log(f"analysis 1080p ms per call (CUDA events, cuDNN TF32 {tf32}): "
+        f"{line}")
+
+
 # ---- main ----------------------------------------------------------------------
 
 
@@ -860,6 +1346,8 @@ def main() -> int:
         run = main_path(device, missing, tmp)
     conv = converter_path(device, rates)
     time_kernel(device, rates, layout="nv12")  # phase 7
+    served = serving_path(device)
+    analysis_path(device)
 
     t = times["normalized"]
     c = conv["times"]["nv12"]
@@ -868,7 +1356,8 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": run["launches"],
+        "launches": run["launches"] + served["image"]["launches"]
+        + served["clip"]["launches"],
         "max_abs_err": run["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],

@@ -378,6 +378,30 @@ def test_emulated_plan_matches_plain(case, layout):
         assert err <= TOL[output], (output, err)
 
 
+@pytest.mark.parametrize("b,out", [(1, 224), (2, 224), (4, 224), (8, 224),
+                                   (16, 224), (8, 512)])
+def test_emulated_serving_plans_match_plain(b, out, monkeypatch):
+    """The plans the wrapper takes on the serving path on an H100's 132
+    SMs (packed 1080p YUV420: the image server's smaller buckets at 224²,
+    whose grids cut shorter bands, and the FCN's 8 frames at 512², five
+    tiles with a ragged last one), emulated on one frame against the
+    plain version."""
+    monkeypatch.setattr(fc, "_sm_count", lambda device: 132)
+    h, w = 1080, 1920
+    y, u, v = _packed_yuv420(b, h, w)
+    plan = fc.plan_for(y, u, v, out_h=out, out_w=out)
+    _check_plan(plan, h, w, out, out, "lanczos", 1)
+    yn, un, vn = _yuv(1, h, w, seed=b + out)
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    got = _emulate(plan, yn, (un, vn), 1, out, out, "lanczos", "normalized",
+                   False, mean, std)
+    want = fc.fused_yuv420_resize_rgb_ref(
+        *(torch.from_numpy(p) for p in (yn, un, vn)), out_h=out, out_w=out,
+        output="normalized", mean=mean, std=std)
+    err = (got - want).abs().max().item()
+    assert err <= TOL["normalized"], err
+
+
 def test_emulated_plan_matches_pallas_interpret():
     """The plan's emulation against the JAX package's whole-frame Pallas
     kernel, interpret mode, at one of its own test shapes."""

@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of videoprocessingframework_tpu for NVIDIA Hopper.
 
-Two paths run on the card:
+Three paths run on the card:
 
 * host libav decode (io/pool.py) → one hand-written CUDA kernel for
   resize + colour conversion (ops/fused_cuda.py,
@@ -8,7 +8,13 @@ Two paths run on the card:
 * host frames → device ``Surface`` (interop/transfer.py) →
   ``SurfaceConverter`` (ops/convert.py; NV12 / YUV420 → RGB_PLANAR through
   the CUDA kernel of ops/csc_cuda.py, csrc/csc_rgb_planar.cu) → zero-copy
-  tensor export or host download (interop/).
+  tensor export or host download (interop/);
+* requests → ``InferenceServer`` (serving.py: dynamic batching, pinned
+  staging, CUDA events) → the fused kernel → the models of models/
+  (ResNet, ViT / VideoViT, VideoClassifier, FCN).
+
+The device analysis ops (ops/metrics.py, flow.py, stabilize.py,
+scenecut.py) are plain torch, as the JAX package left them to XLA.
 """
 
 __version__ = "0.1.0"

@@ -29,12 +29,13 @@ from torch import nn
 
 
 class SameConv2d(nn.Conv2d):
-    """Bias-free convolution with TensorFlow/Flax "SAME" padding: total
-    padding ``max((ceil(n/s) − 1)·s + k − n, 0)``, the odd pixel at the
-    bottom/right."""
+    """Convolution with TensorFlow/Flax "SAME" padding: total padding
+    ``max((ceil(n/s) − 1)·s + k − n, 0)``, the odd pixel at the
+    bottom/right. Bias-free unless ``bias``."""
 
-    def __init__(self, cin, cout, k, stride=1, dtype=torch.bfloat16):
-        super().__init__(cin, cout, k, stride=stride, bias=False)
+    def __init__(self, cin, cout, k, stride=1, dtype=torch.bfloat16,
+                 bias=False):
+        super().__init__(cin, cout, k, stride=stride, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
@@ -45,8 +46,9 @@ class SameConv2d(nn.Conv2d):
             pads += [total // 2, total - total // 2]
         if any(pads):
             x = F.pad(x, pads)
-        return F.conv2d(x, self.weight.to(self.compute_dtype), None,
-                        self.stride)
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x, self.weight.to(dt), bias, self.stride)
 
 
 class BatchNorm(nn.BatchNorm2d):

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
-from ..utils.device import resolve_device
+from ..utils.device import check_f32_matmul, resolve_device
 from . import colorspace as cs
 from .colorspace import f32
 from .convert import _deinterleave_uv, _round_u8, _upsample2
@@ -32,14 +32,6 @@ from .resize import chroma_collapse, resize_matrix
 F = PixelFormat
 COMPUTE = ("auto", "split_bf16", "highest")
 OUTPUTS = ("rgb_u8", "rgb_f32", "normalized", "normalized_nchw")
-
-
-def _check_f32_matmul(x: torch.Tensor) -> None:
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "decode_postproc computes in full float32: turn TF32 matmul off "
-            "(torch.backends.cuda.matmul.allow_tf32 = False)"
-        )
 
 
 def _bf16_parts(t: torch.Tensor):
@@ -211,7 +203,7 @@ def decode_postproc(
     mode = "split_bf16" if compute == "split_bf16" else "highest"
     fmt = PixelFormat(src_format)
     y, u, v, subsampled, sub_h = unpack_yuv_planes(fmt, planes)
-    _check_f32_matmul(y)
+    check_f32_matmul(y, "decode_postproc")
     dev = y.device
 
     gray = u is None
