@@ -57,8 +57,22 @@ Phases, each of which raises on failure:
    side); the 1080p checks and ms per call (CUDA events) at torch's
    default, cuDNN TF32 on.
 
+10. Training path: (a) the clip loader (pinned ring, one upload a batch
+   on a side stream) → FusedPipeline(kernel="cuda", normalized) at
+   1080p→224², 4 clips × 8 frames a batch → video-ResNet-50 (attention
+   head, bf16 compute, float32 params) → make_train_step, SGD 0.01
+   momentum 0.9, 20 steps; (b) the same clips → AugmentPipeline (crop,
+   flip, brightness/contrast/saturation, hue) → mixup_cutmix →
+   video-ViT-S, Adam 1e-3, 10 steps. Without libav the loader is
+   HostClipLoader, seeded 1080p streams through the same ring, upload and
+   pipeline (no decode). Checks: kernel launches ≥ steps in (a), finite
+   losses that fall in both, the first batch vs the plain version, one
+   augmented batch vs the same params on the CPU, one float32 train step
+   on CUDA vs the CPU (video-ResNet-18-like at 64², TF32 off); prints step
+   ms, clips/s, the kernel's share of a step and peak memory.
+
 The line before the last is the per-kernel JSON record (launches of
-fused_resize_csc counted over phases 5 and 8); the last line is
+fused_resize_csc counted over phases 5, 8 and 10 (a)); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -984,19 +998,6 @@ def _served_vs_direct(name, srv, served, items, infer_fn) -> None:
                 f"the check cannot tell items apart")
 
 
-def _packed_frames(n, rows, w, seed) -> np.ndarray:
-    """``n`` seeded packed YUV420 frames (n, rows, w) u8: noise over a
-    coarse pattern of 27 × 32 blocks a frame, so that frames still differ
-    after the resize to 224², as real ones do (noise alone averages to a
-    flat grey)."""
-    rng = np.random.default_rng(seed)
-    frames = rng.integers(0, 128, (n, rows, w), np.uint8)
-    coarse = rng.integers(0, 128, (n, 27, 32), np.uint8)
-    frames += coarse[:, (np.arange(rows) * 27) // rows][
-        :, :, (np.arange(w) * 32) // w]
-    return frames
-
-
 def _pipe_vs_plain(pipe, packed, got) -> None:
     """``got``, ``pipe``'s output on packed YUV420 frames, against the
     kernel's plain version on the same planes (TOL)."""
@@ -1040,6 +1041,7 @@ def serving_path(device) -> dict:
         ColorSpace,
         PixelFormat,
     )
+    from videoprocessingframework_torch.data.loader import seeded_frames
     from videoprocessingframework_torch.models import (
         fcn_resnet,
         video_resnet50,
@@ -1054,7 +1056,7 @@ def serving_path(device) -> dict:
     pipe = FusedPipeline(PixelFormat.YUV420, ColorSpace.BT_709,
                          ColorRange.MPEG, (OUT, OUT), output="normalized",
                          device=device, kernel="cuda")
-    frames = _packed_frames(n_images, rows, SRC_W, seed=21)
+    frames = seeded_frames(n_images, rows, SRC_W, seed=21)
     vit, vit32 = _seeded_model(
         lambda dt: vit_small(1000, dtype=dt, image_size=(OUT, OUT)), device,
         1)
@@ -1319,6 +1321,317 @@ def analysis_path(device) -> None:
         f"{line}")
 
 
+# ---- phase 10 ------------------------------------------------------------------
+
+#: the fed training loop: TRAIN_B clips of TRAIN_T frames a batch, from
+#: TRAIN_STREAMS streams of TRAIN_FRAMES 1080p frames, labelled per
+#: stream. One window a stream puts every label in every batch once, so
+#: batch losses compare from step to step (with 4 windows a stream a
+#: batch's labels vary, and its loss with them: 0.73-11.72 on the card)
+TRAIN_B, TRAIN_T = 4, 8
+TRAIN_STREAMS, TRAIN_FRAMES = 4, 8
+TRAIN_LABELS = [3, 101, 250, 399]
+PLAIN_STEPS, AUG_STEPS = 20, 10
+#: steps of the fed loop before its clips/s window opens (cuDNN plans,
+#: allocations)
+TRAIN_WARM = 3
+#: one float32 train step (TF32 off) on CUDA vs the CPU from the same
+#: weights (video-ResNet-18-like at 64²): loss relative, parameters
+#: relative to each tensor's largest magnitude
+STEP_LOSS_TOL, STEP_PARAM_TOL = 1e-4, 1e-3
+#: an augmented batch on CUDA vs the same params applied on the CPU
+#: (float32 both, TF32 off; normalized units)
+AUG_TOL = 1e-4
+
+
+def _train_source(device, libav_missing: str, tmpdir: str):
+    """``make_loader(**kw)``: VideoClipLoader over make_clip files where
+    the host library builds; without libav, HostClipLoader over seeded
+    1080p streams (the same ring, upload and pipeline; no decode)."""
+    from videoprocessingframework_torch.data import (
+        HostClipLoader,
+        VideoClipLoader,
+    )
+
+    common = dict(clip_len=TRAIN_T, batch_size=TRAIN_B, out_size=(OUT, OUT),
+                  output="normalized", labels=TRAIN_LABELS, seed=41,
+                  device=device)
+    if libav_missing:
+        log(f"training path: host decode stage did not run: libav "
+            f"development files are absent ({libav_missing}); the loader's "
+            f"ring, upload and pipeline are fed {TRAIN_STREAMS} seeded "
+            f"{SRC_W}x{SRC_H} YUV420 streams of {TRAIN_FRAMES} frames from "
+            f"host memory (HostClipLoader)")
+        return lambda **kw: HostClipLoader(
+            SRC_W, SRC_H, TRAIN_STREAMS, TRAIN_FRAMES, **{**common, **kw})
+    from videoprocessingframework_torch.io.encoder import make_clip
+
+    # a luma level a stream (as HostClipLoader's), so the labels are
+    # learnable
+    paths = [str(make_clip(f"{tmpdir}/train_{k}.h264", SRC_W, SRC_H,
+                           TRAIN_FRAMES, level=40 + 50 * k))
+             for k in range(TRAIN_STREAMS)]
+    log(f"training path: VideoClipLoader decodes {TRAIN_STREAMS} make_clip "
+        f"streams of {TRAIN_FRAMES} {SRC_W}x{SRC_H} frames")
+    return lambda **kw: VideoClipLoader(
+        paths, lengths=[TRAIN_FRAMES] * TRAIN_STREAMS, shuffle=False,
+        workers=1, **{**common, **kw})
+
+
+def _first_packed(make_loader) -> torch.Tensor:
+    """The packed frames (B·T, rows, W) of epoch 0's first batch."""
+    x, _ = next(iter(make_loader(output="packed").epoch(0)))
+    return x.reshape(-1, *x.shape[2:])
+
+
+def _fed_loop(loader, step, n_steps, prepare):
+    """``n_steps`` train steps over the loader's epochs 0, 1, …; returns
+    the losses (host), the first batch and its labels, and the wall
+    seconds of the steps after the first TRAIN_WARM (host clock,
+    synchronised at both ends of that window)."""
+    losses, first = [], {}
+    epoch = 0
+    while len(losses) < n_steps:
+        for x, labels in loader.epoch(epoch):
+            if not first:
+                first.update(x=x.clone(), labels=labels)
+            if len(losses) == TRAIN_WARM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            image, label = prepare(x, labels, len(losses))
+            losses.append(step({"image": image, "label": label})["loss"])
+            if len(losses) == n_steps:
+                break
+        epoch += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return torch.stack(losses).float().cpu(), first, wall
+
+
+def _step_ms(step, batch, reps=5) -> float:
+    """Median time of one train step on a device-resident batch, by CUDA
+    events around each step (the device's time, gaps while it waits for
+    the host's enqueue included)."""
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    step(batch)
+    torch.cuda.synchronize()
+    for s, e in ev:
+        s.record()
+        step(batch)
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def _device_profile(fn, reps=3):
+    """(device-busy ms per call, the five longest kernels as (name, ms per
+    call)) over ``reps`` calls, from a torch.profiler trace of the card
+    (the sum of the kernels' and copies' device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / reps)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return sum(t for _, t in rows), rows[:5]
+
+
+def _top(rows) -> str:
+    return "; ".join(f"{k[:60]} {t:.3f}" for k, t in rows)
+
+
+def _train_report(name, losses, wall, loader, step, batch, kernel_ms):
+    """Print and check one trainer's run; returns its numbers."""
+    require(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
+    require(losses[-1] < losses[0], f"{name}: loss did not fall "
+            f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = _step_ms(step, batch)
+    enqueue = _host_ms(lambda: step(batch))
+    busy, top = _device_profile(lambda: step(batch))
+    clips = (len(losses) - TRAIN_WARM) * TRAIN_B / wall
+    stages = ", ".join(f"{k} {v['mean_ms']:.2f}"
+                       for k, v in loader.timer.summary().items())
+    log(f"{name}: losses {', '.join(f'{v:.4f}' for v in losses.tolist())}")
+    log(f"{name}: {len(losses)} steps of {TRAIN_B} clips x {TRAIN_T} frames; "
+        f"after {TRAIN_WARM} warm-up steps {clips:.2f} clips/s of the fed "
+        f"loop (host clock; loader ms per batch: {stages}); step {ms:.2f} ms "
+        f"(CUDA events, device-resident batch, median of 5), host enqueue of "
+        f"a step {enqueue:.2f} ms (host clock); device busy {busy:.2f} ms a "
+        f"step ({100 * (1 - busy / ms):.1f}% idle; torch.profiler); peak "
+        f"memory {peak:.2f} GiB (torch.cuda.max_memory_allocated)"
+        + (f"; fused_resize_csc {kernel_ms:.4f} ms = "
+           f"{100 * kernel_ms / ms:.2f}% of the step" if kernel_ms else ""))
+    log(f"{name}: longest kernels of a step (ms): {_top(top)}")
+    return {"step_ms": ms, "clips_per_s": clips, "peak_gib": peak,
+            "enqueue_ms": enqueue, "busy_ms": busy}
+
+
+def check_train_step(device) -> None:
+    """One float32 step (TF32 off) of video-ResNet-18-like at 64² on CUDA
+    against the same step on the CPU from the same weights."""
+    from videoprocessingframework_torch.models import video_resnet18_like
+    from videoprocessingframework_torch.parallel import make_train_step
+
+    torch.manual_seed(11)
+    cpu = video_resnet18_like(8, "attention", dtype=torch.float32,
+                              frames=TRAIN_T)
+    gpu = video_resnet18_like(8, "attention", dtype=torch.float32,
+                              frames=TRAIN_T)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(device)
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn((2, TRAIN_T, 64, 64, 3), generator=g)
+    labels = torch.tensor([1, 5])
+
+    def sgd(m):
+        return torch.optim.SGD(m.parameters(), lr=0.01, momentum=0.9)
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = make_train_step(gpu, sgd(gpu))(
+            {"image": x.to(device), "label": labels.to(device)})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    want = make_train_step(cpu, sgd(cpu))({"image": x, "label": labels})
+    loss_rel = _rel(got["loss"].cpu(), want["loss"])
+    params_rel = max(_rel(a.cpu(), b) for a, b in zip(
+        gpu.state_dict().values(), cpu.state_dict().values())
+        if a.is_floating_point())
+    line = (f"train step video-ResNet-18-like 64x64 float32 (TF32 off), CUDA "
+            f"vs CPU from the same weights: loss {got['loss'].item():.6f} vs "
+            f"{want['loss'].item():.6f}, relative {loss_rel:.3g} (tol "
+            f"{STEP_LOSS_TOL}); parameters and running statistics after the "
+            f"step, largest relative difference {params_rel:.3g} (tol "
+            f"{STEP_PARAM_TOL})")
+    log(line)
+    require(loss_rel <= STEP_LOSS_TOL and params_rel <= STEP_PARAM_TOL, line)
+
+
+def train_plain(device, make_loader) -> dict:
+    """(a) the fed loop through the band kernel → video-ResNet-50
+    (attention head, bf16 compute, float32 params), SGD 0.01 momentum
+    0.9."""
+    from videoprocessingframework_torch.core.enums import PixelFormat
+    from videoprocessingframework_torch.models import video_resnet50
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.ops.fused import unpack_yuv_planes
+    from videoprocessingframework_torch.parallel import make_train_step
+
+    loader = make_loader(kernel="cuda")
+    torch.manual_seed(10)
+    model = video_resnet50(400, "attention", dtype=torch.bfloat16,
+                           frames=TRAIN_T).to(device,
+                                              memory_format=torch.channels_last)
+    step = make_train_step(model, torch.optim.SGD(
+        model.parameters(), lr=0.01, momentum=0.9))
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launches()
+    losses, first, wall = _fed_loop(loader, step, PLAIN_STEPS,
+                                    lambda x, labels, i: (x, labels))
+    launches = fc.LAUNCHES["fused_resize_csc"]
+    log(f"(a) loader -> fused_resize_csc -> video-ResNet-50 train step: "
+        f"fused_resize_csc launches in this run: {launches}")
+    require(launches >= PLAIN_STEPS,
+            f"{launches} kernel launches for {PLAIN_STEPS} steps")
+
+    packed = _first_packed(make_loader)
+    y, u, v, _, _ = unpack_yuv_planes(PixelFormat.YUV420, (packed,))
+    pipe = loader.pipeline
+    want = fc.fused_yuv420_resize_rgb_ref(
+        y, u, v, out_h=OUT, out_w=OUT, space=pipe.space, rng=pipe.range,
+        output="normalized", mean=pipe.mean, std=pipe.std,
+    ).permute(0, 2, 3, 1)
+    err = (first["x"].reshape(want.shape) - want).abs().max().item()
+    log(f"(a) first batch from the kernel vs its plain version "
+        f"(normalized): max abs {err:.3g} (tol {TOL['normalized']})")
+    require(err <= TOL["normalized"], "first training batch vs plain")
+
+    kernel_ms = cuda_ms(lambda: pipe(packed), reps=10)
+    batch = {"image": first["x"], "label": first["labels"]}
+    rec = _train_report("(a) plain trainer", losses, wall, loader, step,
+                        batch, kernel_ms)
+    return dict(rec, launches=launches, max_abs_err=err,
+                kernel_ms=kernel_ms)
+
+
+def train_augmented(device, make_loader) -> dict:
+    """(b) the fed loop through AugmentPipeline → mixup_cutmix →
+    video-ViT-S (stat-less, bf16 compute), Adam 1e-3."""
+    from videoprocessingframework_torch.core.enums import PixelFormat
+    from videoprocessingframework_torch.models import video_vit_small
+    from videoprocessingframework_torch.ops.augment import (
+        AugmentSpec,
+        augment_postproc,
+        counter_seed,
+        mixup_cutmix,
+        sample_mixup_params,
+    )
+    from videoprocessingframework_torch.parallel import make_train_step
+
+    spec = AugmentSpec(crop=True, crop_scale=(0.5, 1.0), hflip=0.5,
+                       brightness=0.3, contrast=0.3, saturation=0.3, hue=0.1)
+    loader = make_loader(augment=spec)
+    torch.manual_seed(20)
+    model = video_vit_small(400, dtype=torch.bfloat16, frames=TRAIN_T,
+                            image_size=(OUT, OUT)).to(device)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                   lr=1e-3))
+
+    def mix(x, labels, i):
+        params = sample_mixup_params(TRAIN_B, np.random.default_rng(
+            counter_seed(41, 0, i)))
+        return mixup_cutmix(x, torch.from_numpy(np.asarray(labels)), params,
+                            num_classes=400)
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, first, wall = _fed_loop(loader, step, AUG_STEPS, mix)
+
+    # the first augmented batch against the same params on the CPU
+    packed = _first_packed(make_loader).cpu()
+    pipe = loader.pipeline
+    want = augment_postproc(
+        packed, params=pipe.sample(TRAIN_B, SRC_H, SRC_W, 0, 0),
+        src_format=PixelFormat.YUV420, space=pipe.space, rng=pipe.range,
+        out_h=OUT, out_w=OUT, output="normalized", spec=spec,
+        clip_len=TRAIN_T)
+    err = (first["x"].reshape(want.shape).cpu() - want).abs().max().item()
+    log(f"(b) first augmented batch on CUDA vs the same params on the CPU "
+        f"(normalized): max abs {err:.3g} (tol {AUG_TOL})")
+    require(err <= AUG_TOL, "augmented batch CUDA vs CPU")
+    image, label = mix(first["x"], first["labels"], 0)
+    require(tuple(label.shape) == (TRAIN_B, 400)
+            and bool(torch.isfinite(image).all()), "mixup output")
+    packed = packed.to(device)
+    aug_ms = cuda_ms(lambda: pipe(packed), reps=5)
+    aug_host = _host_ms(lambda: pipe(packed))
+    busy, top = _device_profile(lambda: pipe(packed))
+    log(f"(b) AugmentPipeline on {TRAIN_B} clips x {TRAIN_T} frames "
+        f"{SRC_W}x{SRC_H} -> {OUT}x{OUT}: {aug_ms:.3f} ms (CUDA events), "
+        f"host {aug_host:.2f} ms (host clock), device busy {busy:.3f} ms "
+        f"(torch.profiler); longest kernels (ms): {_top(top)}")
+    rec = _train_report("(b) augmented trainer", losses, wall, loader, step,
+                        {"image": image, "label": label}, None)
+    return dict(rec, augment_ms=aug_ms, max_abs_err=err)
+
+
+def training_path(device, libav_missing: str, tmpdir: str) -> dict:
+    """Phase 10: (a) and (b) over one clip source, then the CUDA-vs-CPU
+    train step."""
+    make_loader = _train_source(device, libav_missing, tmpdir)
+    plain = train_plain(device, make_loader)
+    aug = train_augmented(device, make_loader)
+    check_train_step(device)
+    return {"plain": plain, "augmented": aug}
+
+
 # ---- main ----------------------------------------------------------------------
 
 
@@ -1348,6 +1661,8 @@ def main() -> int:
     time_kernel(device, rates, layout="nv12")  # phase 7
     served = serving_path(device)
     analysis_path(device)
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        train = training_path(device, missing, tmp)
 
     t = times["normalized"]
     c = conv["times"]["nv12"]
@@ -1357,7 +1672,7 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": run["launches"] + served["image"]["launches"]
-        + served["clip"]["launches"],
+        + served["clip"]["launches"] + train["plain"]["launches"],
         "max_abs_err": run["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
 ``videoprocessingframework_torch`` (and what chip_smoke.py imports) pulls
-in neither JAX nor the JAX package. Checked in a fresh interpreter."""
+in neither JAX, Flax, optax nor the JAX package. Checked in a fresh
+interpreter."""
 
 import pathlib
 import subprocess
@@ -23,8 +24,7 @@ for node in ast.walk(tree):
     elif isinstance(node, ast.ImportFrom) and node.level == 0:
         importlib.import_module(node.module)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "jaxlib")
-             or m.split(".")[0] in ("jax", "flax", "jaxlib",
+             if m.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
                                     "videoprocessingframework_tpu"))
 print(len(names))
 print("BAD", bad)
@@ -38,13 +38,13 @@ def test_port_imports_no_jax():
     )
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.strip().splitlines()[-2:]
-    assert int(n) >= 34  # every module of slices 1 and 2 was imported
+    assert int(n) >= 51  # every module of the port was imported
     assert bad == "BAD []"
 
 
 def test_port_sources_name_no_jax():
-    """No source of the port (nor chip_smoke.py) imports JAX, Flax or the
-    JAX package, even on a path the import above does not reach."""
+    """No source of the port (nor chip_smoke.py) imports JAX, Flax, optax
+    or the JAX package, even on a path the import above does not reach."""
     files = list((ROOT / "videoprocessingframework_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     for f in files:
@@ -53,5 +53,6 @@ def test_port_sources_name_no_jax():
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1]
                 assert mod.split(".")[0] not in (
-                    "jax", "flax", "jaxlib", "videoprocessingframework_tpu"
+                    "jax", "flax", "jaxlib", "optax",
+                    "videoprocessingframework_tpu"
                 ), f"{f}: {s}"

@@ -11,7 +11,11 @@ Three paths run on the card:
   tensor export or host download (interop/);
 * requests → ``InferenceServer`` (serving.py: dynamic batching, pinned
   staging, CUDA events) → the fused kernel → the models of models/
-  (ResNet, ViT / VideoViT, VideoClassifier, FCN).
+  (ResNet, ViT / VideoViT, VideoClassifier, FCN);
+* training: video files → ``VideoReader`` (io/decoder.py) →
+  ``VideoClipLoader`` (data/: pinned ring, one upload a batch on a side
+  stream) → the fused kernel, or ``AugmentPipeline`` + ``mixup_cutmix``
+  (ops/augment.py) → ``make_train_step`` (parallel/train.py).
 
 The device analysis ops (ops/metrics.py, flow.py, stabilize.py,
 scenecut.py) are plain torch, as the JAX package left them to XLA.
@@ -30,6 +34,7 @@ from .core.exceptions import (  # noqa: F401
     CudaArrayInterfaceUnsupported,
     CuvidParserException,
     HwResetException,
+    UnseekableInputError,
     UnsupportedConversion,
 )
 from .core.packet import (  # noqa: F401

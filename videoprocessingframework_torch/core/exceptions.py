@@ -45,3 +45,9 @@ class CudaArrayInterfaceUnsupported(TypeError):
     tells a cupy-style consumer to ask the plane tensor
     (``interop.surface_to_torch``) instead.
     """
+
+
+class UnseekableInputError(RuntimeError):
+    """The demuxer refused a seek because the input has no index (a raw
+    elementary stream). The demux and decode sessions are left as they
+    were, so a caller may emulate the seek by decoding forward."""

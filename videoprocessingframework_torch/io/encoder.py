@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import ctypes as C
 import pathlib
+from typing import Optional
 
 import numpy as np
 
@@ -19,9 +20,13 @@ def _take_packet(lib, h) -> bytes:
 
 
 def make_clip(path, width: int, height: int, frames: int,
-              codec: str = "h264") -> pathlib.Path:
+              codec: str = "h264", level: Optional[int] = None
+              ) -> pathlib.Path:
     """Encode a moving-gradient NV12 clip (the pattern of the JAX
-    package's bench clip) into an elementary stream at ``path``."""
+    package's bench clip) into an elementary stream at ``path``. With
+    ``level`` the luma pattern is a quarter of the range wide, from
+    ``level`` up, so clips made at different levels are told apart by
+    their brightness."""
     lib = _lib.load()
     opts = {"codec": codec, "preset": "P1", "s": f"{width}x{height}",
             "bitrate": "8M", "fps": "30", "gop": "30"}
@@ -37,6 +42,8 @@ def make_clip(path, width: int, height: int, frames: int,
         for i in range(frames + 1):
             if i < frames:
                 y = ((ys * 2 + xs + i * 7) % 256).astype(np.uint8)
+                if level is not None:
+                    y = y // 4 + np.uint8(level)
                 uv = np.full((height // 2, width), 110 + (i % 40), np.uint8)
                 frame = np.concatenate([y.ravel(), uv.ravel()])
                 args = (frame.ctypes.data_as(u8p), frame.nbytes, None, 0, i)

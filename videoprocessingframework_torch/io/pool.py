@@ -190,16 +190,19 @@ class NativeDecodePool(_RingFeed):
         ``device`` is where :meth:`batches` puts the batches (default
         CUDA; pass ``"cpu"`` to run on the CPU)."""
         from . import _lib
+        from .demuxer import FFmpegDemuxer
 
         self.device = resolve_device(device)
         self._h = None
         self._lib = _lib.load()
         self._err = _lib.last_error
-        props = _lib.probe(sources[0])
-        self.width = props["width"]
-        self.height = props["height"]
-        self.color_space: ColorSpace = props["color_space"]
-        self.color_range: ColorRange = props["color_range"]
+        probe = FFmpegDemuxer(sources[0])
+        try:
+            self.width, self.height = probe.width, probe.height
+            self.color_space: ColorSpace = probe.color_space
+            self.color_range: ColorRange = probe.color_range
+        finally:
+            probe.close()
         self.batch_size = batch_size
         self.out_format = PixelFormat(out_format)
         self.frame_bytes = geometry.host_frame_size(

@@ -12,8 +12,9 @@ Layout and numerics follow the Flax model:
   input by (0, 1), not (1, 1); :class:`SameConv2d` pads explicitly.
   The stem (3/3) and the max-pool (1/1) are symmetric as in torch.
 * ``dtype`` is the compute type; parameters stay float32 (Flax's
-  ``param_dtype``) and are cast in the forward pass. BatchNorm runs in
-  inference mode with ε = 1e-5, in float32 on the compute-type input.
+  ``param_dtype``) and are cast in the forward pass. BatchNorm computes
+  in float32 on the compute-type input with ε = 1e-5; in training mode it
+  takes Flax's biased batch statistics (see :class:`BatchNorm`).
 * Convolutions go to cuDNN; whether they may use TF32 is the caller's
   ``torch.backends.cudnn.allow_tf32`` choice (irrelevant in bf16).
 """
@@ -52,18 +53,42 @@ class SameConv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Inference BatchNorm (Flax momentum 0.9 = torch momentum 0.1)
-    computing on float32 statistics and returning the compute type."""
+    """BatchNorm with Flax's numerics, returning the compute type.
+
+    Statistics compute in at least float32 (a float64 input stays
+    float64, as Flax promotes). Inference normalises by the running
+    statistics. Training normalises by the batch mean and *biased*
+    variance over (N, H, W) — one fused kernel pair, ``native_batch_norm``
+    forward and backward — and folds the same biased variance into the
+    running averages with Flax's momentum 0.9 (torch's own training
+    BatchNorm folds in the unbiased variance, n/(n−1) larger: 2× where a
+    stage's batch holds two values a channel). Flax takes the variance as
+    E[x²] − E[x]²; the kernel's running sums agree with it to float32
+    rounding.
+    """
+
+    #: Flax's momentum: running = MOMENTUM · running + (1 − MOMENTUM) · batch
+    MOMENTUM = 0.9
 
     def __init__(self, c, dtype=torch.bfloat16):
-        super().__init__(c, eps=1e-5, momentum=0.1)
+        super().__init__(c, eps=1e-5, momentum=1 - self.MOMENTUM)
         self.compute_dtype = dtype
 
     def forward(self, x):
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            self.training, self.momentum, self.eps,
-        ).to(self.compute_dtype)
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight,
+                self.bias, False, 0.0, self.eps,
+            ).to(self.compute_dtype)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            var = invstd.pow(-2) - self.eps  # the biased batch variance
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked.add_(1)
+        return y.to(self.compute_dtype)
 
 
 class BottleneckBlock(nn.Module):
@@ -124,7 +149,10 @@ class ResNet(nn.Module):
         for name in self.blocks:
             x = getattr(self, name)(x)
         x = x.mean(dim=(2, 3))
-        return self.classifier(x.float())
+        # Flax's Dense(dtype=float32): float32 whatever the parameters'
+        # type
+        c = self.classifier
+        return F.linear(x.float(), c.weight.float(), c.bias.float())
 
 
 def resnet50(num_classes: int = 1000, dtype=torch.bfloat16) -> ResNet:

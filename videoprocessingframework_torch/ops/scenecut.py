@@ -8,13 +8,14 @@ The score of each adjacent pair is the mean of two features in [0, 1]:
 * intensity: half the L1 distance of coarse soft luma histograms, which
   catches exposure jumps.
 
-A robust median + MAD threshold on the host picks the cuts.
-``segment_shots`` (decode + score) waits for the port's ``VideoReader``.
+A robust median + MAD threshold on the host picks the cuts;
+:func:`segment_shots` decodes a file on the host and scores it on the
+device.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -22,7 +23,7 @@ import torch
 from ..utils.device import as_tensor
 from .metrics import ssim
 
-__all__ = ["scene_cut_scores", "detect_cuts"]
+__all__ = ["scene_cut_scores", "detect_cuts", "segment_shots"]
 
 
 def _soft_histogram(x: torch.Tensor, bins: int) -> torch.Tensor:
@@ -70,3 +71,50 @@ def detect_cuts(scores: np.ndarray, *, min_score: float = 0.18,
     mad = float(np.median(np.abs(s - med)))
     thresh = max(min_score, med + k_mad * max(mad, 1e-6))
     return [int(i) for i in np.nonzero(s > thresh)[0]]
+
+
+def segment_shots(source: str, *, batch: int = 32,
+                  max_frames: Optional[int] = None, min_score: float = 0.18,
+                  k_mad: float = 8.0, device=None) -> List[tuple]:
+    """Decode ``source`` and return its shot spans ``[(start, end), …]``
+    (end exclusive, in decode order).
+
+    Host decode feeds ``batch``-frame windows of luma to the scorer on
+    ``device`` (CUDA by default), with a one-frame overlap so every
+    adjacent pair is scored exactly once.
+    """
+    from ..core.enums import PixelFormat
+    from ..io.decoder import VideoReader
+
+    reader = VideoReader(source)
+    reader.decoder.output_format = PixelFormat.YUV420
+    h, w = reader.height(), reader.width()
+    buf = np.empty((h * 3 // 2, w), np.uint8)
+
+    scores: List[float] = []
+    carry: Optional[np.ndarray] = None
+    window: List[np.ndarray] = []
+    n = 0
+
+    def score(frames):
+        s = scene_cut_scores(np.stack(frames), device=device)
+        scores.extend(float(v) for v in s.cpu().numpy())
+
+    while max_frames is None or n < max_frames:
+        if reader.decode(out=buf) is None:
+            break
+        window.append(buf[:h].copy())
+        n += 1
+        if len(window) + (carry is not None) == batch:
+            score(([carry] if carry is not None else []) + window)
+            carry = window[-1]
+            window = []
+    if window:
+        frames = ([carry] if carry is not None else []) + window
+        if len(frames) >= 2:
+            score(frames)
+    if n == 0:
+        return []
+    cuts = detect_cuts(np.asarray(scores), min_score=min_score, k_mad=k_mad)
+    bounds = [0] + [c + 1 for c in cuts] + [n]
+    return [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]

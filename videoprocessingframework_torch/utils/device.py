@@ -30,6 +30,18 @@ def as_tensor(x, device=None) -> torch.Tensor:
     return torch.as_tensor(a, device=resolve_device(device))
 
 
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` (a tensor or numpy data) on ``device``. Host data goes to a
+    CUDA device by a pinned non-blocking copy, so the host does not wait
+    for the device's queued work."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def check_f32_matmul(x: torch.Tensor, what: str) -> None:
     """``what`` computes in full float32: refuse a CUDA tensor while TF32
     matmuls are allowed."""
