@@ -10,14 +10,17 @@ Phases, each of which raises on failure:
 2. Build: the CUDA kernel library (nvcc, sm_90a) and, where the libav
    development files exist, the native host library; both at once, beside
    an ``nvcc -Xptxas -v`` compile of fused_resize_csc.cu whose registers,
-   shared memory and spills are printed per kernel.
+   shared memory and spills are printed per kernel. Without the libav
+   development files it prints which libav runtime libraries the dynamic
+   linker knows (``ldconfig -p``).
 3. fused_resize_csc (the band kernel) vs its first version (the direct
    entry point: 0 codes, 0.0), vs its plain version and vs the float64
-   golden, planar and NV12 × rgb_u8 / rgb_f32 / normalized, at
-   1080p→224² ×32, 2160p→224² ×4, 464×848→61×45 ×2, and at the shapes
-   the serving path launches (phase 8): 1080p→224² at every smaller
-   bucket (×1-16, where the plan cuts shorter bands) and 1080p→512² ×8
-   (the FCN's input); each line names the plan it took.
+   golden (rgb_u8 and rgb_f32, in codes), planar and NV12 × rgb_u8 /
+   rgb_f32 / normalized, at 1080p→224² ×32, 2160p→224² ×4, 464×848→61×45
+   ×2, at the shapes the serving path launches (phase 8): 1080p→224² at
+   every smaller bucket (×1-16, where the plan cuts shorter bands) and
+   1080p→512² ×8 (the FCN's input), and at the device-transcode chain's
+   1080p→1080p ×4 (phase 11a); each line names the plan it took.
 4. Timings (CUDA events, warm-up, median): the direct and band kernels
    in turns (direct, band, band, direct), planar: at 1080p→224² and
    2160p→224² ×32 beside the plain version and the kernel="torch" path;
@@ -70,9 +73,24 @@ Phases, each of which raises on failure:
    augmented batch vs the same params on the CPU, one float32 train step
    on CUDA vs the CPU (video-ResNet-18-like at 64², TF32 off); prints step
    ms, clips/s, the kernel's share of a step and peak memory.
+11. Encode side: (a) the device-transcode chain of
+   samples/sample_device_transcode.py at 1080p: seeded YUV420 batches of 4
+   (HostBatchRing) → FusedPipeline(kernel="cuda", rgb_f32, 1:1) → the rows
+   H/3…H/2 darkened → encode_feed to 720p, then to 1080p with no resize →
+   planes_to_host_packed → VideoEncoder → StreamMuxer (the last two where
+   libav builds); encode_feed and encode_feed_gray on CUDA vs the CPU and
+   the float64 golden (≤1 code), the kernel's launches ≥ batches, CUDA-event
+   ms of the kernel and of encode_feed beside its arithmetic floor, frames/s
+   of the chain. (b) The PyNvCodec namespace (compat): PyFrameUploader →
+   PySurfaceConverter(NV12 → RGB_PLANAR, csc_rgb_planar) → PySurfaceResizer
+   → PySurfaceDownloader at 1080p vs the golden and the plain resize,
+   GpuMem() as data_ptr() across an in-place copy, csc_rgb_planar's
+   launches over this phase. (c) Where libav builds: MultiStreamPipeline,
+   Transcoder, PyNvDecoder and PyNvEncoder; else one line each.
 
 The line before the last is the per-kernel JSON record (launches of
-fused_resize_csc counted over phases 5, 8 and 10 (a)); the last line is
+fused_resize_csc counted over phases 5, 8, 10 (a), 11a and 11c, of
+csc_rgb_planar over phases 6 and 11b); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -103,11 +121,13 @@ SEG = 512
 #: checks (phase 3): the main path, 4K, a small frame, then what the
 #: serving path launches (phase 8): every smaller bucket of the image
 #: server (the clip server's kernel batches are 8, 16 and 32 frames),
-#: whose plans cut shorter bands, and the FCN's 8 frames at SEG²
+#: whose plans cut shorter bands, and the FCN's 8 frames at SEG²; then
+#: the device-transcode chain's 1:1 batch (phase 11a: 18 column tiles,
+#: the last ragged)
 KERNEL_CHECKS = [(BATCH, SRC_H, SRC_W, OUT, OUT), (4, 2160, 3840, OUT, OUT),
                  (2, 464, 848, 61, 45)] + [
     (b, SRC_H, SRC_W, OUT, OUT) for b in (1, 2, 4, 8, 16)] + [
-    (8, SRC_H, SRC_W, SEG, SEG)]
+    (8, SRC_H, SRC_W, SEG, SEG), (4, SRC_H, SRC_W, SRC_H, SRC_W)]
 #: (batch, height, width) of the csc_rgb_planar checks (phase 6); the
 #: kernel takes 8 columns a thread at the first two, 2 at 270×482 and 4
 #: at 30×100
@@ -230,8 +250,24 @@ def build_all() -> str:
         log(line)
     if missing:
         log(f"build host: not built: libav development files absent "
-            f"({missing})")
+            f"({missing}); libav runtime libraries (ldconfig -p): "
+            f"{libav_runtime()}")
     return missing
+
+
+def libav_runtime() -> str:
+    """The libav shared libraries the dynamic linker knows, or 'none'."""
+    for exe in ("ldconfig", "/sbin/ldconfig"):
+        try:
+            out = subprocess.run([exe, "-p"], capture_output=True, text=True,
+                                 timeout=60).stdout
+            break
+        except FileNotFoundError:
+            out = ""
+    names = sorted({line.split()[0] for line in out.splitlines()
+                    if re.match(r"\s*lib(avcodec|avformat|avutil)\.so",
+                                line)})
+    return ", ".join(names) or "none"
 
 
 # ---- phase 3 -------------------------------------------------------------------
@@ -276,8 +312,8 @@ def _interleave(u, v):
 
 def check_kernel(device) -> float:
     """Band kernel vs direct kernel (all modes, exact), vs plain (all
-    modes, TOL) and vs golden (rgb_u8, two frames). Returns the largest
-    u8 error seen against the plain version."""
+    modes, TOL) and vs golden (rgb_u8 and rgb_f32 in codes, two frames).
+    Returns the largest u8 error seen against the plain version."""
     from videoprocessingframework_torch.ops import fused_cuda as fc
 
     worst, worst_direct = 0.0, 0.0
@@ -307,11 +343,14 @@ def check_kernel(device) -> float:
                 line = (f"check {layout} {h}x{w}->{oh}x{ow} b{b} {out}: "
                         f"max|band-direct| {derr:.3g} (tol 0), "
                         f"max|band-plain| {err:.3g} (tol {TOL[out]})")
-                if out == "rgb_u8":
-                    gerr = np.abs(got[:2].cpu().numpy().astype(np.int64)
-                                  - gold).max()
-                    line += f", max|band-golden| {gerr} (tol 1)"
+                if out in ("rgb_u8", "rgb_f32"):
+                    codes = got[:2].cpu().numpy().astype(np.float64)
+                    if out == "rgb_f32":
+                        codes *= 255.0
+                    gerr = np.abs(codes - gold).max()
+                    line += f", max|band-golden| {gerr:.3g} codes (tol 1)"
                     require(gerr <= 1, line)
+                if out == "rgb_u8":
                     worst = max(worst, err)
                 log(line)
                 worst_direct = max(worst_direct, derr)
@@ -1632,6 +1671,341 @@ def training_path(device, libav_missing: str, tmpdir: str) -> dict:
     return {"plain": plain, "augmented": aug}
 
 
+# ---- phase 11 ------------------------------------------------------------------
+
+
+#: the device-transcode chain (phase 11a): batches of XC_BATCH seeded
+#: 1080p frames, the band H/3…H/2 darkened, then the encoder feed at each
+#: target (height, width): 720p, then 1080p with no resize
+XC_BATCH, XC_BATCHES = 4, 24
+XC_TARGETS = [(720, 1280), (SRC_H, SRC_W)]
+#: compat chain (phase 11b) output size
+XC_SMALL = 224
+
+
+def _golden_feed(rgb, oh, ow, space, rng):
+    """float64 golden encoder feed of float RGB frames (N, H, W, 3) in
+    [0, 1]: the resize matrices per channel, then golden.rgb_to_yuv420's
+    matrix, 2×2 chroma mean and rounding."""
+    from videoprocessingframework_torch.ops import colorspace as cs
+    from videoprocessingframework_torch.ops import golden
+    from videoprocessingframework_torch.ops.resize import resize_matrix
+
+    x = rgb.astype(np.float64) * 255.0
+    n, h, w, _ = x.shape
+    if (h, w) != (oh, ow):
+        rm = resize_matrix(h, oh).astype(np.float64)
+        cm = resize_matrix(w, ow).astype(np.float64)
+        x = np.stack([np.stack([rm @ x[i, :, :, c] @ cm.T for c in range(3)],
+                               -1) for i in range(n)])
+    m, off = cs.ycbcr_from_rgb_matrix(space, rng)
+    ycc = x @ m.T + off
+    return (golden._round_u8(ycc[..., 0]),
+            golden._round_u8(golden.downsample_chroma_420(ycc[..., 1])),
+            golden._round_u8(golden.downsample_chroma_420(ycc[..., 2])))
+
+
+def _feed_macs(h, w, oh, ow) -> int:
+    """Multiply-adds of encode_feed's resize for one channel-frame, the
+    order it takes (the cheaper axis first)."""
+    if (h, w) == (oh, ow):
+        return 0
+    return min(oh * h * w + oh * w * ow, h * w * ow + oh * h * ow)
+
+
+def _check_feed(rgb, space, rng) -> None:
+    """encode_feed / encode_feed_gray on CUDA vs the same call on the CPU
+    (two frames) and vs the float64 golden (one frame), at every target:
+    ≤1 code."""
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+    )
+    from videoprocessingframework_torch.ops import colorspace as cs
+    from videoprocessingframework_torch.ops import golden
+    from videoprocessingframework_torch.ops.fused import (
+        encode_feed,
+        encode_feed_gray,
+    )
+    from videoprocessingframework_torch.ops.resize import resize_matrix
+
+    x = rgb[:2]
+    host = x.cpu()
+    for oh, ow in XC_TARGETS:
+        kw = dict(out_h=oh, out_w=ow, space=space, rng=rng)
+        got = [p.cpu().numpy() for p in encode_feed(x, **kw)]
+        cpu = [p.numpy() for p in encode_feed(host, **kw)]
+        gold = _golden_feed(host[:1].numpy(), oh, ow, space, rng)
+        e_cpu = max(_maxdiff(g, c) for g, c in zip(got, cpu))
+        e_gold = max(_maxdiff(g[:1], w) for g, w in zip(got, gold))
+        gkw = dict(out_h=oh, out_w=ow, space=ColorSpace.BT_601,
+                   rng=ColorRange.JPEG)
+        gy = encode_feed_gray(x, **gkw).cpu().numpy()
+        gy_cpu = encode_feed_gray(host, **gkw).numpy()
+        m, off = cs.ycbcr_from_rgb_matrix(ColorSpace.BT_601, ColorRange.JPEG)
+        f = host[0].numpy().astype(np.float64) * 255.0
+        if (oh, ow) != tuple(f.shape[:2]):
+            rm = resize_matrix(f.shape[0], oh).astype(np.float64)
+            cm = resize_matrix(f.shape[1], ow).astype(np.float64)
+            f = np.stack([rm @ f[..., c] @ cm.T for c in range(3)], -1)
+        gy_gold = golden._round_u8(f @ m[0] + off[0])
+        e_gcpu, e_ggold = _maxdiff(gy, gy_cpu), _maxdiff(gy[0], gy_gold)
+        line = (f"encode_feed {SRC_H}x{SRC_W}->{oh}x{ow}: max|cuda-cpu| "
+                f"{e_cpu}, max|cuda-golden| {e_gold}; encode_feed_gray: "
+                f"max|cuda-cpu| {e_gcpu}, max|cuda-golden| {e_ggold} "
+                f"(tol 1 each)")
+        log(line)
+        require(max(e_cpu, e_gold, e_gcpu, e_ggold) <= 1, line)
+
+
+def _maxdiff(a, b) -> int:
+    return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+
+def device_transcode(device, rates, libav_missing: str, tmpdir: str) -> dict:
+    """Phase 11a: the chain of samples/sample_device_transcode.py on the
+    port, at 1080p: HostBatchRing → FusedPipeline(kernel="cuda", rgb_f32,
+    1:1) → a darkened band → encode_feed → planes_to_host_packed →
+    VideoEncoder → StreamMuxer (where libav builds)."""
+    from videoprocessingframework_torch.core.enums import (
+        CodecId,
+        ColorRange,
+        ColorSpace,
+        PixelFormat,
+    )
+    from videoprocessingframework_torch.io import HostBatchRing
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.ops.fused import (
+        FusedPipeline,
+        encode_feed,
+        planes_to_host_packed,
+    )
+
+    space, rng = ColorSpace.BT_709, ColorRange.MPEG
+    ring = HostBatchRing(SRC_W, SRC_H, XC_BATCH, 0, n_buffers=3, seed=5,
+                         device=device)
+    pipe = FusedPipeline(PixelFormat.YUV420, space, rng, (SRC_W, SRC_H),
+                         output="rgb_f32", device=device, kernel="cuda")
+    band = torch.ones(SRC_H, 1, 1, device=device)
+    band[SRC_H // 3: SRC_H // 2] = 0.5
+    if libav_missing:
+        log(f"device transcode: the encoder and muxer stage did not run: "
+            f"libav development files are absent ({libav_missing}); the "
+            f"chain ends at planes_to_host_packed")
+    rec = {"launches": 0}
+    for oh, ow in XC_TARGETS:
+        enc = mux = None
+        if not libav_missing:
+            from videoprocessingframework_torch.io import (
+                StreamMuxer,
+                VideoEncoder,
+            )
+
+            enc = VideoEncoder({"codec": "h264", "preset": "P1",
+                                "fmt": "YUV420", "s": f"{ow}x{oh}",
+                                "bitrate": "8M", "gop": "30"})
+            mux = StreamMuxer(f"{tmpdir}/xcode_{oh}p.mp4", CodecId.H264, ow,
+                              oh, fps=30)
+        first = {}
+        frames = packets = 0
+        fc.reset_launches()
+        ring.rewind(XC_BATCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for rgb in ring.batches(pipe, depth=2):
+            rgb = torch.clamp(rgb * band, 0.0, 1.0)
+            if not first:
+                first["rgb"] = rgb.clone()
+            planes = encode_feed(rgb, out_h=oh, out_w=ow, space=space,
+                                 rng=rng)
+            for frame in planes_to_host_packed(*planes):
+                out = enc.encode(frame) if enc is not None else None
+                if out is not None:
+                    mux.write(*out)
+                    packets += 1
+                frames += 1
+        if enc is not None:
+            for out in enc.flush():
+                mux.write(*out)
+                packets += 1
+            mux.close()
+        fps = frames / (time.perf_counter() - t0)
+        launches = fc.LAUNCHES["fused_resize_csc"]
+        rec["launches"] += launches
+        require(frames == XC_BATCH * XC_BATCHES, f"{frames} frames")
+        require(launches >= XC_BATCHES,
+                f"{launches} kernel launches in {XC_BATCHES} batches")
+        if enc is not None:
+            require(packets == frames, f"{packets} packets, {frames} frames")
+        x = first["rgb"]
+        require(x.shape == (XC_BATCH, SRC_H, SRC_W, 3)
+                and bool(torch.isfinite(x).all()), "the chain's RGB batch")
+        if oh == XC_TARGETS[0][0]:
+            _check_feed(x, space, rng)
+            y, u, v = _seeded_yuv(XC_BATCH, SRC_H, SRC_W, seed=5,
+                                  device=device)
+            kernel_ms = cuda_ms(lambda: pipe(y, u, v))
+            bound, by, nbytes = kernel_bound(XC_BATCH, SRC_H, SRC_W, SRC_H,
+                                             SRC_W, 4, *rates)
+            log(f"time fused_resize_csc {SRC_H}x{SRC_W}->{SRC_H}x{SRC_W} "
+                f"rgb_f32 b{XC_BATCH} (1:1 Lanczos, "
+                f"{_plan_line(y, (u, v), SRC_H, SRC_W)}): {kernel_ms:.4f} ms "
+                f"per batch, {nbytes / kernel_ms / 1e6:.1f} GB/s, "
+                f"{100 * bound / kernel_ms:.1f}% of bound {bound:.4f} ms "
+                f"({by})")
+            rec.update(kernel_ms=kernel_ms, bound_ms=bound)
+        feed_ms = cuda_ms(lambda: encode_feed(x, out_h=oh, out_w=ow,
+                                              space=space, rng=rng), reps=10)
+        macs = _feed_macs(SRC_H, SRC_W, oh, ow)
+        flop = 2.0 * macs * 3 * XC_BATCH
+        floor = 1e3 * flop / rates[1]
+        log(f"device transcode {SRC_H}x{SRC_W}->{oh}x{ow} b{XC_BATCH}: "
+            f"{fps:.1f} frames/s over {frames} frames (host clock, "
+            f"ring->kernel->band->encode_feed->host"
+            f"{'->encoder->mp4' if enc is not None else ''}), "
+            f"{packets} packets; fused_resize_csc launches in this run "
+            f"{launches}; encode_feed {feed_ms:.3f} ms per batch (CUDA "
+            f"events; " + (
+                f"resize {macs / 1e9:.2f} G multiply-adds a channel-frame, "
+                f"{flop / 1e9:.1f} GFLOP a batch in float32, no call under "
+                f"{floor:.3f} ms at {rates[1] / 1e12:.0f} TFLOP/s)" if macs
+                else "no resize: the colour matrix and the 4:2:0 fold)"))
+        rec[f"{oh}p"] = dict(fps=fps, feed_ms=feed_ms, floor_ms=floor)
+    return rec
+
+
+def compat_chain(device) -> dict:
+    """Phase 11b: the PyNvCodec namespace on the card: PyFrameUploader →
+    PySurfaceConverter(NV12 → RGB_PLANAR) → PySurfaceResizer →
+    PySurfaceDownloader at 1080p, held to the golden and the plain resize;
+    GpuMem() addresses."""
+    import videoprocessingframework_torch.compat as nvc
+    from videoprocessingframework_torch.core.surface import Surface
+    from videoprocessingframework_torch.ops import csc_cuda as cc
+    from videoprocessingframework_torch.ops import golden
+    from videoprocessingframework_torch.ops.resize import SurfaceResizer
+
+    n = nvc.GetNumGpus()
+    require(n == torch.cuda.device_count(), f"GetNumGpus() {n}")
+    gpu = 0 if device.type == "cuda" else "cpu"  # "cpu" for a rehearsal
+    P = nvc.PixelFormat
+    w, h, s = SRC_W, SRC_H, XC_SMALL
+    frame = np.random.default_rng(12).integers(0, 256, w * h * 3 // 2,
+                                               np.uint8)
+    cc.reset_launches()
+    surf = nvc.PyFrameUploader(w, h, P.NV12, gpu).UploadSingleFrame(frame)
+    ctx = nvc.ColorspaceConversionContext(nvc.ColorSpace.BT_709,
+                                          nvc.ColorRange.MPEG)
+    rgb = nvc.PySurfaceConverter(w, h, P.NV12, P.RGB_PLANAR,
+                                 gpu).Execute(surf, ctx)
+    small = nvc.PySurfaceResizer(s, s, P.RGB_PLANAR, gpu).Execute(rgb)
+    out, full = np.ndarray(0, np.uint8), np.ndarray(0, np.uint8)
+    require(nvc.PySurfaceDownloader(s, s, P.RGB_PLANAR,
+                                    gpu).DownloadSingleSurface(small, out),
+            "compat download")
+    require(nvc.PySurfaceDownloader(w, h, P.RGB_PLANAR,
+                                    gpu).DownloadSingleSurface(rgb, full),
+            "compat download at 1080p")
+    launches = cc.LAUNCHES["csc_rgb_planar"]
+    host = Surface.from_host_frame(frame, P.NV12, w, h)
+    gold = np.moveaxis(golden.nv12_to_rgb(*host.planes, nvc.ColorSpace.BT_709,
+                                          nvc.ColorRange.MPEG), -1, 0)
+    e_gold = _maxdiff(full.reshape(3, h, w), gold)
+    plain = SurfaceResizer(s, s, P.RGB_PLANAR).run(rgb.core.to_device("cpu"))
+    e_resize = _maxdiff(out.reshape(3 * s, s), plain.planes[0].numpy())
+    plane = rgb.PlanePtr(0)
+    addr = plane.GpuMem()
+    other = nvc.Surface.Make(P.RGB_PLANAR, w, h, gpu)
+    rgb.CopyFrom(other)
+    same = (addr == rgb.core.planes[0].data_ptr()
+            == rgb.PlanePtr(0).GpuMem())
+    line = (f"compat chain PyFrameUploader->PySurfaceConverter(NV12->"
+            f"RGB_PLANAR)->PySurfaceResizer({s}x{s})->PySurfaceDownloader, "
+            f"{w}x{h} BT_709/MPEG: GetNumGpus {n}; max|converter-golden| "
+            f"{e_gold} (tol 1); max|resize-plain resize| {e_resize} (tol 1); "
+            f"GpuMem {'equals' if same else 'DIFFERS FROM'} data_ptr and "
+            f"holds across CopyFrom; csc_rgb_planar launches in this phase "
+            f"{launches}")
+    log(line)
+    require(e_gold <= 1 and e_resize <= 1 and same and launches >= 1, line)
+    buf = nvc.PyBufferUploader(1, 4096, gpu).UploadSingleBuffer(
+        frame[:4096])
+    baddr = buf.GpuMem()
+    buf.CopyFrom(nvc.CudaBuffer.Make(1, 4096, gpu))
+    require(buf.GpuMem() == baddr and int(buf.to_numpy().max()) == 0,
+            "CudaBuffer.CopyFrom in place")
+    return {"launches": launches}
+
+
+def libav_paths(device, libav_missing: str, tmpdir: str) -> dict:
+    """Phase 11c: MultiStreamPipeline, Transcoder, PyNvDecoder and
+    PyNvEncoder over a make_clip stream, where libav builds; else one line
+    each saying why not."""
+    what = ("MultiStreamPipeline", "Transcoder", "PyNvDecoder",
+            "PyNvEncoder")
+    if libav_missing:
+        for name in what:
+            log(f"{name}: did not run: libav development files are absent "
+                f"({libav_missing})")
+        return {"launches": 0}
+    import videoprocessingframework_torch.compat as nvc
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+        PixelFormat,
+    )
+    from videoprocessingframework_torch.io import Transcoder
+    from videoprocessingframework_torch.io.encoder import make_clip
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.ops.fused import FusedPipeline
+    from videoprocessingframework_torch.parallel import MultiStreamPipeline
+
+    gpu = 0 if device.type == "cuda" else "cpu"  # "cpu" for a rehearsal
+    w, h, nf = 640, 360, 32
+    clip = str(make_clip(f"{tmpdir}/streams.h264", w, h, nf))
+    fc.reset_launches()
+    pipe = MultiStreamPipeline(
+        [clip, clip], batch_size=8, device=device,
+        postproc=FusedPipeline(PixelFormat.NV12, ColorSpace.BT_709,
+                               ColorRange.MPEG, (OUT, OUT), device=device))
+    frames = sum(b.shape[0] for b in pipe.batches())
+    launches = fc.LAUNCHES["fused_resize_csc"]
+    log(f"MultiStreamPipeline: 2 streams of {nf} {w}x{h} frames, "
+        f"{frames} frames at {pipe.stats.fps:.1f} fps, fused_resize_csc "
+        f"(NV12) launches {launches}")
+    require(frames == 2 * nf, "MultiStreamPipeline frames")
+    st = Transcoder(clip, {"preset": "P1"}).run()
+    log(f"Transcoder: {st.frames} frames, {st.out_bytes} B, "
+        f"{st.fps:.1f} fps")
+    require(st.frames == nf, "Transcoder frames")
+    dec = nvc.PyNvDecoder(clip, gpu)
+    got = 0
+    while not dec.DecodeSingleSurface().Empty():
+        got += 1
+    enc = nvc.PyNvEncoder({"codec": "h264", "preset": "P1",
+                           "s": f"{w}x{h}"}, gpu)
+    surf = nvc.PyFrameUploader(w, h, nvc.PixelFormat.NV12, gpu)\
+        .UploadSingleFrame(np.full(w * h * 3 // 2, 90, np.uint8))
+    pkt = np.ndarray(0, np.uint8)
+    sent = sum(enc.EncodeSingleSurface(surf, pkt) for _ in range(4))
+    while enc.FlushSinglePacket(pkt):
+        sent += 1
+    log(f"PyNvDecoder: {got} surfaces on {device}; PyNvEncoder: {sent} "
+        f"packets from 4 surfaces on {device}")
+    require(got == nf and sent == 4, "PyNvDecoder / PyNvEncoder")
+    return {"launches": launches}
+
+
+def transcode_path(device, rates, libav_missing: str, tmpdir: str) -> dict:
+    """Phase 11: 11a, 11b and 11c."""
+    t0 = time.perf_counter()
+    xcode = device_transcode(device, rates, libav_missing, tmpdir)
+    comp = compat_chain(device)
+    host = libav_paths(device, libav_missing, tmpdir)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return {"transcode": xcode, "compat": comp, "libav": host}
+
+
 # ---- main ----------------------------------------------------------------------
 
 
@@ -1663,6 +2037,8 @@ def main() -> int:
     analysis_path(device)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
         train = training_path(device, missing, tmp)
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        xcode = transcode_path(device, rates, missing, tmp)
 
     t = times["normalized"]
     c = conv["times"]["nv12"]
@@ -1672,7 +2048,8 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": run["launches"] + served["image"]["launches"]
-        + served["clip"]["launches"] + train["plain"]["launches"],
+        + served["clip"]["launches"] + train["plain"]["launches"]
+        + xcode["transcode"]["launches"] + xcode["libav"]["launches"],
         "max_abs_err": run["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -1686,7 +2063,7 @@ def main() -> int:
         "route": "cuda",
         "source": CSC_SOURCE,
         "replaces": CSC_REPLACES,
-        "launches": conv["launches"],
+        "launches": conv["launches"] + xcode["compat"]["launches"],
         "max_abs_err": conv["max_abs_err"],
         "ms": c["ms"],
         "plain_ms": c["plain_ms"],

@@ -4,6 +4,11 @@ stream properties, packets (bytes and metadata), frames and seeks
 bit-equal; the port's typed refusal of a seek on an unseekable input and
 its decoder reset after a seek past the end; device Surfaces (the card's
 case is marked ``cuda``).
+
+Two repairs of the port's native runtime, where the JAX package differs
+on purpose: the frames decoded after a corrupt packet come out at the
+default frame threading, and a frame-number seek in an mp4 whose index
+calls every sample a sync sample steps back to a real keyframe.
 """
 
 import numpy as np
@@ -322,3 +327,132 @@ def test_segment_shots_equal(test_mp4, tmp_path):
     assert len(got) == 2 and got[0][1] == 24 and got[-1][1] == 48
     assert segment_shots(test_mp4, max_frames=48, batch=16,
                          device="cpu") == [(0, 48)]
+
+
+def _h264_packets(n, w=128, h=96):
+    """``n`` zero-latency H.264 packets of a 128×96 clip (the port's
+    encoder)."""
+    from videoprocessingframework_torch.io.encoder import VideoEncoder
+
+    enc = VideoEncoder({"codec": "h264", "preset": "P1", "s": f"{w}x{h}",
+                        "bitrate": "500K"})
+    frame = np.full((w * h * 3 // 2,), 100, np.uint8)
+    return [enc.encode(frame, sync=True)[0] for _ in range(n)]
+
+
+def _decode_after_a_corrupt_packet(dec, packets):
+    """Feed a corrupted copy of the first packet, then the clean packets,
+    then flush: (frames, errors by type)."""
+    bad = packets[0].copy()
+    bad[20:] = 0xA5
+    errors, frames = [], []
+    for i, p in enumerate([bad] + packets + [None] * (len(packets) + 2)):
+        try:
+            f = (dec.decode_packet(p) if i <= len(packets)
+                 else dec.flush_frame())
+        except RuntimeError as e:  # HwReset / BitstreamParser
+            errors.append(type(e).__name__)
+            continue
+        if f is not None:
+            frames.append(f.data)
+    return frames, errors
+
+
+@pytest.mark.parametrize("threads", [0, 1])
+def test_corrupt_packet_keeps_the_frames_after_it(threads):
+    """Six packets after a corrupted copy of the first: all six frames
+    decode, at libav's default frame threading (threads=0) as with one
+    thread. With frame threading libav reports the bad packet's error at
+    the EOS send; the decoder drains first and raises the error once
+    nothing is left, so the re-create drops no frame."""
+    packets = _h264_packets(6)
+    clean = VideoDecoder(CodecId.H264, threads=threads)
+    want = [f.data for f in filter(None, map(clean.decode_packet, packets))]
+    while (f := clean.flush_frame()) is not None:
+        want.append(f.data)
+    assert len(want) == 6
+    got, errors = _decode_after_a_corrupt_packet(
+        VideoDecoder(CodecId.H264, threads=threads), packets)
+    assert len(got) == 6
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert errors == (["HwResetException"] if threads == 0
+                      else ["BitstreamParserException"])
+
+
+def test_corrupt_packet_drops_the_frames_in_the_jax_package():
+    """The deliberate difference: the JAX package's decoder yields none
+    of the six frames at threads=0."""
+    from videoprocessingframework_tpu.core.enums import CodecId as JCodecId
+    from videoprocessingframework_tpu.io.decoder import (
+        VideoDecoder as JDecoder,
+    )
+
+    got, errors = _decode_after_a_corrupt_packet(
+        JDecoder(JCodecId.H264, threads=0), _h264_packets(6))
+    assert got == [] and errors == ["HwResetException"]
+
+
+GOP, NF = 8, 20  # keyframes at 0, 8, 16; frames 17-19 follow the last
+
+
+@pytest.fixture(scope="module", params=["metadata", "pts_only"])
+def gop8_mp4(request, tmp_path_factory):
+    """A GOP-8 mp4 of NF frames from the port's encoder and muxer. Written
+    with the encoder's packet metadata, its index marks the keyframes;
+    written with a pts only (each packet a key frame to the container)
+    it has no sync-sample table, so the index calls every sample a sync
+    sample."""
+    from videoprocessingframework_torch.io.encoder import VideoEncoder
+    from videoprocessingframework_torch.io.muxer import StreamMuxer
+
+    path = tmp_path_factory.mktemp("gop8") / f"{request.param}.mp4"
+    enc = VideoEncoder({"codec": "h264", "preset": "P1", "s": "128x96",
+                        "fps": "30", "gop": str(GOP), "bf": "0",
+                        "bitrate": "2M"})
+    rng = np.random.default_rng(5)
+    with StreamMuxer(str(path), CodecId.H264, 128, 96, fps=30.0,
+                     format="mp4") as mux:
+        for i in range(NF):
+            y = rng.integers(0, 256, (96, 128), np.uint8)
+            uv = np.full((48, 128), 100 + i, np.uint8)
+            pkt, meta = enc.encode(np.concatenate([y.ravel(), uv.ravel()]),
+                                   sync=True)
+            if request.param == "metadata":
+                mux.write(pkt, meta)
+            else:
+                mux.write(pkt, pts=i)
+    return str(path)
+
+
+def test_frame_number_seek_past_the_last_keyframe(gop8_mp4):
+    """Every frame-number target, those after the last keyframe included,
+    returns the frame with that number, bit-equal to a sequential read."""
+    seq = list(VideoReader(gop8_mp4).frames())
+    assert len(seq) == NF
+    assert [i for i, f in enumerate(seq) if f.pkt_data.key] == [0, 8, 16]
+    r = VideoReader(gop8_mp4)
+    for target in list(range(NF)) + [NF - 1, 3, 17]:
+        c = SeekContext(seek_frame=target)
+        f = r.decode(seek_ctx=c)
+        assert f is not None, target
+        assert np.array_equal(f.data, seq[target].data), target
+        assert f.pkt_data.pts == seq[target].pkt_data.pts
+        assert 1 <= c.num_frames_decoded <= target % GOP + 1
+
+
+def test_loader_window_past_the_last_keyframe_loads(gop8_mp4):
+    """Every window of a shuffled epoch loads, the ones that start after
+    the last keyframe (17, 18) included."""
+    from videoprocessingframework_torch.data import VideoClipLoader
+
+    rd = VideoReader(gop8_mp4)
+    rd.decoder.output_format = PixelFormat.YUV420
+    frames = np.stack([f.data.reshape(144, 128).copy() for f in rd.frames()])
+    ld = VideoClipLoader([gop8_mp4], clip_len=2, batch_size=3, hop=1,
+                         output="packed", seed=4, device="cpu")
+    samples = ld.sampler.epoch(0)
+    assert {17, 18} <= set(samples[:, 1].tolist())
+    got = np.concatenate([b.numpy() for b in ld.epoch(0)])
+    assert len(got) == len(samples) == NF - 1
+    for clip, (_, st) in zip(got, samples):
+        assert np.array_equal(clip, frames[st: st + 2]), st

@@ -1,9 +1,14 @@
-"""Host I/O: the native libav runtime — demuxer, decoder and reader, and
-the decode pool."""
+"""Host I/O: the native libav runtime — demuxer, decoder and reader, the
+decode pool, the encoder, the muxer and the transcoder."""
 
 from .decoder import DecodedFrame, VideoDecoder, VideoReader, codec_caps
 from .demuxer import DemuxResult, FFmpegDemuxer
+from .encoder import VideoEncoder, get_encoder_params
+from .muxer import StreamMuxer
 from .pool import HostBatchRing, NativeDecodePool
+from .transcode import TranscodeStats, Transcoder, transcode, transcode_many
 
 __all__ = ["DecodedFrame", "DemuxResult", "FFmpegDemuxer", "HostBatchRing",
-           "NativeDecodePool", "VideoDecoder", "VideoReader", "codec_caps"]
+           "NativeDecodePool", "StreamMuxer", "TranscodeStats", "Transcoder",
+           "VideoDecoder", "VideoEncoder", "VideoReader", "codec_caps",
+           "get_encoder_params", "transcode", "transcode_many"]

@@ -3,8 +3,9 @@
 Binds what this package calls: the demuxer (open, demux, seek, timestamp
 conversions, parameter sets), the decoder (packets in, frames out, reset,
 re-create, the native sequential clip read, capabilities, motion
-vectors), the decode pool (``vpf_pool_*``), the encoder that makes test
-clips, and ``vpf_last_error``. ctypes drops the GIL for every call, so
+vectors), the decode pool (``vpf_pool_*``), the encoder (sessions,
+packets, reconfiguration, option checks), the muxer and
+``vpf_last_error``. ctypes drops the GIL for every call, so
 native work never holds the interpreter.
 """
 
@@ -166,6 +167,20 @@ def load() -> C.CDLL:
     sig("vpf_encoder_packet", C.c_int,
         [C.c_void_p, C.POINTER(_u8p), C.POINTER(C.c_size_t),
          C.POINTER(VpfPacketData)])
+    sig("vpf_encoder_reconfigure", C.c_int,
+        [C.c_void_p, C.POINTER(C.c_char_p), C.POINTER(C.c_char_p), C.c_int,
+         C.c_int, C.c_int])
+    sig("vpf_encoder_width", C.c_int, [C.c_void_p])
+    sig("vpf_encoder_height", C.c_int, [C.c_void_p])
+    sig("vpf_encoder_validate_options", C.c_int,
+        [C.POINTER(C.c_char_p), C.c_int])
+
+    sig("vpf_muxer_open", C.c_void_p,
+        [C.c_char_p, C.c_char_p, C.c_int, C.c_int, C.c_int, C.c_int,
+         C.c_int, _u8p, C.c_size_t])
+    sig("vpf_muxer_write", C.c_int,
+        [C.c_void_p, _u8p, C.c_size_t, C.c_int64, C.c_int64, C.c_int])
+    sig("vpf_muxer_close", C.c_int, [C.c_void_p])
 
     sig("vpf_pool_create", C.c_void_p,
         [C.POINTER(C.c_char_p), C.c_int, C.c_int, C.c_size_t, C.c_int,

@@ -1,12 +1,11 @@
 """Build the native host runtime (``libvpf_host.so``) from the package's
 own copy of the libav C++ sources (``io/native/``).
 
-The slice needs the demuxer, the decoder, the decode pool and the encoder
-(which makes test clips); the muxer and the JPEG entropy coder wait for
-their slice. The library is built at first use with g++ against the
-libav development files found by pkg-config, into the gitignored
-``io/_native_build/``, under a file lock with an atomic rename (see
-``utils/build_cache.py``).
+It holds the demuxer, the decoder, the decode pool, the encoder and the
+muxer; the JPEG entropy coder waits for its slice. The library is built
+at first use with g++ against the libav development files found by
+pkg-config, into the gitignored ``io/_native_build/``, under a file lock
+with an atomic rename (see ``utils/build_cache.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +18,8 @@ from ..utils.build_cache import cached_build
 _HERE = pathlib.Path(__file__).parent
 SRC = _HERE / "native"
 OUT_DIR = _HERE / "_native_build"
-SOURCES = ["demuxer.cpp", "decoder.cpp", "encoder.cpp", "pool.cpp"]
+SOURCES = ["demuxer.cpp", "decoder.cpp", "encoder.cpp", "pool.cpp",
+           "muxer.cpp"]
 _LIBAV = ("libavformat", "libavcodec", "libavutil")
 CFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-fvisibility=hidden"]
 

@@ -39,6 +39,8 @@ struct Decoder {
   AVFrame* current = nullptr;   // last frame handed to the caller
   std::vector<VpfMotionVector> mvs;
   bool eos_sent = false;
+  int held_error = 0;  // a libav error held back while frames remain
+  const char* held_what = nullptr;
   bool export_mvs = false;
   int threads = 0;
   std::vector<uint8_t> extradata;
@@ -87,7 +89,14 @@ struct Decoder {
     }
     if (ret < 0) return vpf_set_av_error(VPF_ERR, "avcodec_open2", ret);
     eos_sent = false;
+    held_error = 0;
     return VPF_OK;
+  }
+
+  void hold_error(const char* what, int ret) {
+    if (held_error) return;
+    held_error = ret;
+    held_what = what;
   }
 
   int drain_ready() {
@@ -100,22 +109,29 @@ struct Decoder {
       }
       if (ret < 0) {
         av_frame_free(&f);
-        return vpf_set_av_error(VPF_ERR_DECODE, "avcodec_receive_frame", ret);
+        hold_error("avcodec_receive_frame", ret);
+        return VPF_ERR_DECODE;
       }
       ready.push_back(f);
     }
   }
 
   /* Feed one packet (data==nullptr → begin EOS flush); returns VPF_OK if a
-   * frame is available for pickup. */
+   * frame is available for pickup.
+   *
+   * With frame threading libav reports a bad packet's error late, at the
+   * EOS send, while frames of the clean packets decoded after it are still
+   * queued in the worker threads. A failed EOS send or receive is therefore
+   * held back: the frames still in the session come out first, and the
+   * error is reported (VPF_ERR_DECODE) only by a call that finds none, so
+   * the caller's recovery (a re-create) drops no frame. */
   int decode(const uint8_t* data, size_t size, const VpfPacketData* in_pkt) {
     int ret;
     if (!data || !size) {
       if (!eos_sent) {
         ret = avcodec_send_packet(avctx, nullptr);
         eos_sent = true;
-        if (ret < 0 && ret != AVERROR_EOF)
-          return vpf_set_av_error(VPF_ERR_DECODE, "send EOS", ret);
+        if (ret < 0 && ret != AVERROR_EOF) hold_error("send EOS", ret);
       }
     } else {
       AVPacket* pkt = av_packet_alloc();
@@ -143,8 +159,12 @@ struct Decoder {
         return vpf_set_av_error(VPF_ERR_DECODE, "avcodec_send_packet", ret);
     }
     int r = drain_ready();
-    if (r == VPF_ERR_DECODE) return r;
     if (!ready.empty()) return take_frame();
+    if (held_error) {
+      ret = held_error;
+      held_error = 0;
+      return vpf_set_av_error(VPF_ERR_DECODE, held_what, ret);
+    }
     return r == VPF_ERR_EOF ? VPF_ERR_EOF : VPF_NEED_MORE;
   }
 
@@ -426,6 +446,7 @@ VPF_API void vpf_decoder_reset(void* h) {
   d->ready.clear();
   avcodec_flush_buffers(d->avctx);
   d->eos_sent = false;
+  d->held_error = 0;
 }
 
 /* Full re-create after VPF_ERR_DECODE (HwReset analog). */

@@ -224,6 +224,26 @@ struct Demuxer {
       if (r != VPF_OK) return r;
       r = demux(want_sei);
       if (r != VPF_OK) return r == VPF_NEED_MORE ? VPF_ERR_EOF : r;
+      // An index can call every sample a sync sample (an mp4 muxed without
+      // key flags has no stss), so the backward seek lands on a packet the
+      // decoder cannot start from, and past the last real keyframe nothing
+      // decodes at all. The packet's own key flag (from the parser) tells:
+      // step back one packet at a time to the key packet before it. With
+      // no key packet before it, land where the index said.
+      while (!last_pkt.key && last_pkt.dts != AV_NOPTS_VALUE) {
+        int64_t landed = last_pkt.dts;
+        r = seek_raw(landed - 1, AVSEEK_FLAG_BACKWARD);
+        if (r != VPF_OK) return r;
+        r = demux(want_sei);
+        if (r != VPF_OK) return r == VPF_NEED_MORE ? VPF_ERR_EOF : r;
+        if (last_pkt.dts == AV_NOPTS_VALUE || last_pkt.dts >= landed) {
+          r = seek_raw(target_ts, AVSEEK_FLAG_BACKWARD);
+          if (r != VPF_OK) return r;
+          r = demux(want_sei);
+          if (r != VPF_OK) return r == VPF_NEED_MORE ? VPF_ERR_EOF : r;
+          break;
+        }
+      }
     } else {
       // EXACT_FRAME: seek (ANY) then demux forward comparing DTS; on
       // overshoot step the target back and re-seek.

@@ -7,17 +7,25 @@ every resize row sums to 1) → colour matrix → output store. Its dense
 resize runs through ``torch.matmul``, as XLA ran it outside any Pallas
 kernel. :class:`FusedPipeline` binds one configuration and sends inputs
 that qualify to the hand-written CUDA kernel (ops/fused_cuda.py).
+
+The outbound direction is here too: :func:`encode_feed` and
+:func:`encode_feed_gray` turn batched RGB frames into resized YUV420 (or
+luma) encoder input with float32 resize matmuls, and
+:func:`planes_to_host_packed` brings the planes to the host in the
+encoder's packed layout with one device-to-host copy.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
-from ..utils.device import check_f32_matmul, resolve_device
+from ..utils.device import as_tensor, check_f32_matmul, resolve_device
 from . import colorspace as cs
 from .colorspace import f32
 from .convert import _deinterleave_uv, _round_u8, _upsample2
@@ -381,3 +389,142 @@ class FusedPipeline(nn.Module):
                     "even frame size and no src_window)"
                 )
         return self._run_torch(*planes)
+
+
+# ---- outbound: the encoder feed --------------------------------------------
+# The counterpart of decode_postproc for the encode direction (reference
+# transcode chain: ResizeSurface NV12 path + RGB→YUV NPP converters,
+# Tasks.cpp:1265-1332 / TasksColorCvt.cpp rgb→yuv420): batched RGB frames
+# → resized planar YUV420. The colour matrix is affine and resize rows sum
+# to 1, so converting AFTER the resize is exact; the 4:2:0 chroma subsample
+# (2×2 mean) is linear too and runs on the small output grid. The resize
+# runs on the channel planes (the JAX package's einsums run channel-last):
+# the fused kernel's NHWC output is a view of planes, so its planes cost no
+# relayout, and each pass is one plain GEMM.
+
+
+@lru_cache(maxsize=16)
+def _resize_matrices(h, w, out_h, out_w, method, device: torch.device):
+    """The (rows, columns) resize matrices on ``device``, copied there once
+    per geometry: a copy from pageable memory would make the host wait for
+    the device on every call."""
+    return (torch.from_numpy(resize_matrix(h, out_h, method)).to(device),
+            torch.from_numpy(resize_matrix(w, out_w, method)).to(device))
+
+
+def _encode_feed_resized(rgb, out_h, out_w, method, swap, compute, what):
+    """The shared outbound prologue: validate, swap channels, scale float
+    inputs, resize → the (N, 3, out_h, out_w) float32 channel planes."""
+    if rgb.dim() != 4 or rgb.shape[-1] != 3:
+        raise ValueError(f"expected (N, H, W, 3) RGB, got {tuple(rgb.shape)}")
+    if compute not in COMPUTE:
+        raise ValueError(f"unknown compute mode {compute!r}")
+    check_f32_matmul(rgb, what)
+    n, h, w, _ = rgb.shape
+    if swap:
+        rgb = rgb.flip(-1)
+    x = rgb.permute(0, 3, 1, 2)
+    if x.is_floating_point():
+        x = x.to(torch.float32) * 255.0
+    x = x.reshape(n * 3, h, w)
+    if (h, w) != (out_h, out_w):
+        rmat, cmat = _resize_matrices(h, w, out_h, out_w, method, x.device)
+        mode = "split_bf16" if compute == "split_bf16" else "highest"
+        x = _resize_plane2d(x, rmat, cmat, mode)
+    return x.to(torch.float32).reshape(n, 3, out_h, out_w)
+
+
+def _ycbcr_planes(planes, space, rng, rows):
+    """The given rows of the RGB→YCbCr matrix applied to the channel
+    planes, with float32 constants as scalars (nothing to copy to the
+    device)."""
+    m, off = cs.ycbcr_from_rgb_matrix(space, rng)
+    r, g, b = planes.unbind(1)
+    return [r * f32(m[i][0]) + g * f32(m[i][1]) + b * f32(m[i][2])
+            + f32(off[i]) for i in rows]
+
+
+def encode_feed(
+    rgb,
+    *,
+    out_h: int,
+    out_w: int,
+    space: ColorSpace = ColorSpace.BT_709,
+    rng: ColorRange = ColorRange.MPEG,
+    method: str = "lanczos",
+    swap: bool = False,
+    compute: str = "auto",
+    device=None,
+):
+    """Batched RGB frames → resized planar YUV420 encoder feed.
+
+    rgb: (N, H, W, 3) uint8, or float in [0, 1] (e.g. a model or overlay
+    output); ``swap=True`` reads BGR channel order. A tensor is computed
+    on its own device; host data goes to ``device`` (CUDA by default).
+    Returns u8 planes ``(y, u, v)``: y (N, out_h, out_w), u/v
+    (N, out_h/2, out_w/2); :func:`planes_to_host_packed` assembles the
+    VideoEncoder input on the host. out_h/out_w must be even (4:2:0).
+    compute: 'auto' and 'highest' are full float32 (TF32 refused on
+    CUDA); 'split_bf16' keeps the JAX package's hi/lo bf16 numerics.
+    Fidelity: ≤1 u8 ULP vs the float64 golden (resize matrices +
+    golden.rgb_to_yuv420).
+    """
+    if out_h % 2 or out_w % 2:
+        raise ValueError("YUV420 target size must be even")
+    planes = _encode_feed_resized(as_tensor(rgb, device), out_h, out_w,
+                                  method, swap, compute, "encode_feed")
+    y, cb, cr = _ycbcr_planes(planes, space, rng, (0, 1, 2))
+    n = planes.shape[0]
+
+    def fold(c):  # 4:2:0 chroma: the 2×2 mean on the target grid
+        return c.reshape(n, out_h // 2, 2, out_w // 2, 2).mean(dim=(2, 4))
+
+    return _round_u8(y), _round_u8(fold(cb)), _round_u8(fold(cr))
+
+
+def encode_feed_gray(
+    rgb,
+    *,
+    out_h: int,
+    out_w: int,
+    space: ColorSpace = ColorSpace.BT_601,
+    rng: ColorRange = ColorRange.JPEG,
+    method: str = "lanczos",
+    swap: bool = False,
+    compute: str = "auto",
+    device=None,
+):
+    """Luma-only :func:`encode_feed`: RGB → resized u8 Y plane (grayscale
+    encoder targets; no 4:2:0 fold, so odd target sizes are fine). The
+    defaults differ from :func:`encode_feed` on purpose: gray targets
+    follow the JPEG path's convention (full-range BT.601)."""
+    planes = _encode_feed_resized(as_tensor(rgb, device), out_h, out_w,
+                                  method, swap, compute, "encode_feed_gray")
+    (y,) = _ycbcr_planes(planes, space, rng, (0,))
+    return _round_u8(y)
+
+
+def planes_to_host_packed(y, u, v) -> np.ndarray:
+    """(y, u, v) planes → the packed planar-YUV420 host frames
+    ``(N, H*3/2, W)`` that VideoEncoder.encode takes. CUDA planes are
+    packed on the device and come back by one copy into pinned memory,
+    which the host waits for before it returns the array."""
+    n, h, w = y.shape
+    if h % 4:
+        raise ValueError(
+            f"packed planar YUV420 requires height % 4 == 0, got {h}")
+    if not isinstance(y, torch.Tensor):
+        y, u, v = np.asarray(y), np.asarray(u), np.asarray(v)
+        return np.concatenate(
+            [y, u.reshape(n, h // 4, w), v.reshape(n, h // 4, w)], axis=1)
+    packed = torch.cat(
+        [y, u.reshape(n, h // 4, w), v.reshape(n, h // 4, w)], dim=1)
+    if not packed.is_cuda:
+        return packed.numpy()
+    host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+    with torch.cuda.device(packed.device):
+        host.copy_(packed, non_blocking=True)
+        landed = torch.cuda.Event()
+        landed.record()
+    landed.synchronize()  # never hand out the buffer before the copy
+    return host.numpy()
