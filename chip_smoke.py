@@ -7,8 +7,9 @@ one NVIDIA GPU: the quickest proof that the port still starts on the card.
 Phases, each of which raises on failure:
 
 1. Device: CUDA must be available; prints the card's name and power limit.
-2. Build: the CUDA kernel library (nvcc, sm_90a) and, where the libav
-   development files exist, the native host library; both at once, beside
+2. Build: the CUDA kernel library (nvcc, sm_90a), the JPEG entropy coder
+   (libvpf_jpeg, g++ only) and, where the libav development files exist,
+   the native host library; all at once, beside
    an ``nvcc -Xptxas -v`` compile of fused_resize_csc.cu whose registers,
    shared memory and spills are printed per kernel. Without the libav
    development files it prints which libav runtime libraries the dynamic
@@ -20,7 +21,8 @@ Phases, each of which raises on failure:
    ×2, at the shapes the serving path launches (phase 8): 1080p→224² at
    every smaller bucket (×1-16, where the plan cuts shorter bands) and
    1080p→512² ×8 (the FCN's input), and at the device-transcode chain's
-   1080p→1080p ×4 (phase 11a); each line names the plan it took.
+   1080p→1080p ×4 (phase 11a); then 1080p→224² ×32 at full-range BT.601
+   (the JPEG convention, phase 12); each line names the plan it took.
 4. Timings (CUDA events, warm-up, median): the direct and band kernels
    in turns (direct, band, band, direct), planar: at 1080p→224² and
    2160p→224² ×32 beside the plain version and the kernel="torch" path;
@@ -87,9 +89,25 @@ Phases, each of which raises on failure:
    GpuMem() as data_ptr() across an in-place copy, csc_rgb_planar's
    launches over this phase. (c) Where libav builds: MultiStreamPipeline,
    Transcoder, PyNvDecoder and PyNvEncoder; else one line each.
+12. The split MJPEG codec (no libav needed), 32 seeded, textured 1080p
+   RGB frames: (a) JpegDeviceEncoder (q90, 4:2:0) on the card vs the CPU
+   and golden_encode on the same planes (≤1, the share that differs
+   printed), then JpegCoefEncoder → 32 JPEGs; (b) JpegCoefDecoder gives
+   the coefficients back exactly, JpegDevicePipeline planes vs
+   golden_decode and the CPU (≤1 code), normalized / rgb_u8 at 224²
+   through the band kernel (one launch a batch) vs
+   FusedPipeline(kernel="torch") on the same planes (phase 3's bars),
+   small 4:2:2 and gray streams through the torch route vs the CPU;
+   (c) JpegDeviceTranscoder to 720p q75 vs the CPU (≤1), re-encoded,
+   decoded back, luma PSNR vs the source; (d) MjpegWriter's raw stream
+   split at SOI/EOI and decoded; MjpegReader, MjpegTranscoder and
+   MjpegClipLoader where libav builds, else one line each. Then host
+   entropy ms a frame at 1 and the default workers, the dequant + IDCT
+   ms (CUDA events) beside its bound, the band kernel on these planes,
+   and the decode and encode chains in frames/s (host clock).
 
 The line before the last is the per-kernel JSON record (launches of
-fused_resize_csc counted over phases 5, 8, 10 (a), 11a and 11c, of
+fused_resize_csc counted over phases 5, 8, 10 (a), 11a, 11c and 12, of
 csc_rgb_planar over phases 6 and 11b); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -97,6 +115,7 @@ csc_rgb_planar over phases 6 and 11b); the last line is
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -128,6 +147,9 @@ KERNEL_CHECKS = [(BATCH, SRC_H, SRC_W, OUT, OUT), (4, 2160, 3840, OUT, OUT),
                  (2, 464, 848, 61, 45)] + [
     (b, SRC_H, SRC_W, OUT, OUT) for b in (1, 2, 4, 8, 16)] + [
     (8, SRC_H, SRC_W, SEG, SEG), (4, SRC_H, SRC_W, SRC_H, SRC_W)]
+#: checks at full-range BT.601, the JPEG convention: what the split MJPEG
+#: decoder (phase 12) launches
+JPEG_KERNEL_CHECKS = [(BATCH, SRC_H, SRC_W, OUT, OUT)]
 #: (batch, height, width) of the csc_rgb_planar checks (phase 6); the
 #: kernel takes 8 columns a thread at the first two, 2 at 270×482 and 4
 #: at 30×100
@@ -234,7 +256,8 @@ def build_all() -> str:
         except BaseException as e:  # re-raised below, in this thread
             results[name] = (e, time.perf_counter() - t0)
 
-    jobs = [("kernels", kbuild.load_kernels), ("ptxas", ptxas_report)]
+    jobs = [("kernels", kbuild.load_kernels), ("ptxas", ptxas_report),
+            ("jpeg", hbuild.build_jpeg)]
     if not missing:
         jobs.append(("host", hbuild.build))
     threads = [threading.Thread(target=run, args=j) for j in jobs]
@@ -273,12 +296,20 @@ def libav_runtime() -> str:
 # ---- phase 3 -------------------------------------------------------------------
 
 
-def _golden(y, u, v, out_h, out_w):
-    """float64 golden (B, 3, H', W') on numpy planes."""
+def _colorimetry(jpeg: bool) -> tuple:
+    """(space, range): full-range BT.601 for JPEG, else BT.709 / MPEG."""
     from videoprocessingframework_torch.core.enums import (
         ColorRange,
         ColorSpace,
     )
+
+    if jpeg:
+        return ColorSpace.BT_601, ColorRange.JPEG
+    return ColorSpace.BT_709, ColorRange.MPEG
+
+
+def _golden(y, u, v, out_h, out_w, jpeg=False):
+    """float64 golden (B, 3, H', W') on numpy planes."""
     from videoprocessingframework_torch.ops import colorspace as cs
     from videoprocessingframework_torch.ops.resize import resize_matrix
 
@@ -290,7 +321,7 @@ def _golden(y, u, v, out_h, out_w):
         return np.matmul(np.matmul(rm, p.astype(np.float64)), cm.T)
 
     up = lambda c: np.repeat(np.repeat(c, 2, 1), 2, 2)  # noqa: E731
-    m, off = cs.rgb_from_ycbcr_matrix(ColorSpace.BT_709, ColorRange.MPEG)
+    m, off = cs.rgb_from_ycbcr_matrix(*_colorimetry(jpeg))
     ycc = np.stack([rsz(y) - off[0], rsz(up(u)) - off[1],
                     rsz(up(v)) - off[2]], 1)
     return np.clip(np.rint(np.einsum("nc...,dc->nd...", ycc, m)), 0, 255)
@@ -317,18 +348,24 @@ def check_kernel(device) -> float:
     from videoprocessingframework_torch.ops import fused_cuda as fc
 
     worst, worst_direct = 0.0, 0.0
-    for b, h, w, oh, ow in KERNEL_CHECKS:
+    checks = ([(c, False) for c in KERNEL_CHECKS]
+              + [(c, True) for c in JPEG_KERNEL_CHECKS])
+    for (b, h, w, oh, ow), jpeg in checks:
         y, u, v = _seeded_yuv(b, h, w, seed=h + b + oh, device=device)
         uv = _interleave(u, v)
-        gold = _golden(*(p[:2].cpu().numpy() for p in (y, u, v)), oh, ow)
+        gold = _golden(*(p[:2].cpu().numpy() for p in (y, u, v)), oh, ow,
+                       jpeg)
+        space, rng = _colorimetry(jpeg)
+        tag = f"{h}x{w}->{oh}x{ow} b{b}{' BT601/JPEG' if jpeg else ''}"
         for layout in ("planar", "nv12"):
             chroma = (u, v) if layout == "planar" else (uv,)
             p = fc.plan_for(y, *chroma, out_h=oh, out_w=ow)
-            log(f"check {layout} {h}x{w}->{oh}x{ow} b{b}: plan {p.rows} "
+            log(f"check {layout} {tag}: plan {p.rows} "
                 f"rows x {p.cols} cols, {p.n_bands} bands x {p.n_tiles} "
                 f"tiles")
             for out in ("rgb_u8", "rgb_f32", "normalized"):
-                kw = dict(out_h=oh, out_w=ow, output=out)
+                kw = dict(out_h=oh, out_w=ow, output=out, space=space,
+                          rng=rng)
                 if layout == "planar":
                     got = fc.fused_yuv420_resize_rgb(y, u, v, **kw)
                     want = fc.fused_yuv420_resize_rgb_ref(y, u, v, **kw)
@@ -340,7 +377,7 @@ def check_kernel(device) -> float:
                 require(got.shape == (b, 3, oh, ow), f"shape {got.shape}")
                 err = (got.float() - want.float()).abs().max().item()
                 derr = (got.float() - direct.float()).abs().max().item()
-                line = (f"check {layout} {h}x{w}->{oh}x{ow} b{b} {out}: "
+                line = (f"check {layout} {tag} {out}: "
                         f"max|band-direct| {derr:.3g} (tol 0), "
                         f"max|band-plain| {err:.3g} (tol {TOL[out]})")
                 if out in ("rgb_u8", "rgb_f32"):
@@ -2006,6 +2043,424 @@ def transcode_path(device, rates, libav_missing: str, tmpdir: str) -> dict:
     return {"transcode": xcode, "compat": comp, "libav": host}
 
 
+# ---- phase 12 ------------------------------------------------------------------
+
+
+#: the split MJPEG codec (phase 12): MJ_BATCH seeded, textured 1080p RGB
+#: frames encoded at quality MJ_QUALITY (4:2:0), transcoded to MJ_XC at
+#: quality MJ_XC_QUALITY; the 4:2:2 and gray cases at MJ_SMALL (batch,
+#: height, width) to MJ_SMALL_OUT²; the raw writer's MJ_RAW frames; the
+#: chains timed over MJ_REPS passes of the batch
+MJ_BATCH, MJ_QUALITY = 32, 90
+MJ_XC, MJ_XC_QUALITY = (720, 1280), 75
+MJ_SMALL, MJ_SMALL_OUT = (4, 270, 480), 112
+MJ_RAW, MJ_REPS = 8, 3
+
+
+def _textured_rgb(b, h, w, seed, device) -> torch.Tensor:
+    """``b`` seeded RGB frames (b, h, w, 3) u8 on ``device``: a gradient,
+    a coarse block pattern a channel and fine noise, so they compress like
+    pictures and still differ after a resize to 224²."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    coarse = torch.randint(0, 96, (b, 27, 48, 3), generator=g,
+                           dtype=torch.uint8).to(device)
+    noise = torch.randint(0, 32, (b, h, w, 3), generator=g,
+                          dtype=torch.uint8).to(device)
+    rows = (torch.arange(h, device=device) * 27) // h
+    cols = (torch.arange(w, device=device) * 48) // w
+    grad = ((torch.arange(h, device=device)[:, None] * 64) // h
+            + (torch.arange(w, device=device)[None, :] * 64) // w)
+    return noise + coarse[:, rows][:, :, cols] + \
+        grad[None, :, :, None].to(torch.uint8)
+
+
+def _diff(a, b) -> tuple:
+    """(max |a-b|, the share of entries that differ) of integer arrays."""
+    d = np.abs(np.asarray(a).astype(np.int64) - np.asarray(b).astype(np.int64))
+    return int(d.max()), np.count_nonzero(d) / d.size
+
+
+def _diffs(got, want) -> tuple:
+    """The largest max and share of :func:`_diff` over pairs of arrays."""
+    ds = [_diff(g, w) for g, w in zip(got, want)]
+    return max(d[0] for d in ds), max(d[1] for d in ds)
+
+
+def _host(ts) -> list:
+    return [t.cpu().numpy() for t in ts]
+
+
+def _psnr(a, b) -> float:
+    err = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return float(10 * np.log10(255.0 ** 2 / max((err ** 2).mean(), 1e-12)))
+
+
+def _threaded(fn, items, workers) -> list:
+    """``fn(state, item)`` over ``items`` on ``workers`` threads, in order;
+    ``state`` is a dict of the calling thread's own (its coder)."""
+    from videoprocessingframework_torch.io.jpeg import _bounded_ordered_map
+
+    local = threading.local()
+
+    def one(item):
+        if not hasattr(local, "state"):
+            local.state = {}
+        return fn(local.state, item)
+
+    return list(_bounded_ordered_map(one, items, workers))
+
+
+def _entropy_timings(jpegs, frames, quant_tables, workers) -> dict:
+    """Host entropy decode and encode of the batch, ms a frame, at one
+    worker and at ``workers`` threads (the native calls drop the GIL)."""
+    from videoprocessingframework_torch.io.jpeg import (
+        JpegCoefDecoder,
+        JpegCoefEncoder,
+    )
+
+    def dec(state, data):
+        return state.setdefault("c", JpegCoefDecoder()).decode(data)
+
+    def enc(state, f):
+        return state.setdefault("c", JpegCoefEncoder(
+            SRC_W, SRC_H, quant_tables=quant_tables)).encode(*f)
+
+    rec = {}
+    for name, fn, items in (("decode", dec, jpegs), ("encode", enc, frames)):
+        for w in sorted({1, workers}):
+            _threaded(fn, items[:w], w)  # warm-up: each thread's scratch
+            t0 = time.perf_counter()
+            out = _threaded(fn, items, w)
+            rec[f"{name}_{w}"] = 1e3 * (time.perf_counter() - t0) / len(out)
+    return rec
+
+
+def _idct_bound(coeffs, planes, mem_rate, flop_rate) -> tuple:
+    """(bound ms, bound_by) of the dequant + IDCT + assembly of a batch:
+    the int16 coefficients read once, the u8 planes written once, and
+    2·64·64 float32 operations a block."""
+    blocks = sum(c.shape[0] * c.shape[1] for c in coeffs)
+    nbytes = 2 * 64 * blocks + sum(p.numel() for p in planes)
+    t_bytes, t_ops = nbytes / mem_rate, 2.0 * 64 * 64 * blocks / flop_rate
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def _small_route(device, sampling, seed) -> None:
+    """A small 4:2:2 or gray stream: device encode → host encode → host
+    decode → JpegDevicePipeline(rgb_u8) on the card vs the CPU; the band
+    kernel must not launch (FusedPipeline's gate takes 4:2:0 only)."""
+    from videoprocessingframework_torch.io.jpeg import (
+        JpegCoefDecoder,
+        JpegCoefEncoder,
+    )
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.ops.jpeg import (
+        JpegDeviceEncoder,
+        JpegDevicePipeline,
+    )
+
+    b, h, w = MJ_SMALL
+    rgb = _textured_rgb(b, h, w, seed, device)
+    y = rgb[..., 0].contiguous()
+    planes = (y,) if sampling == "gray" else (
+        y, rgb[:, :, 0::2, 1].contiguous(), rgb[:, :, 1::2, 2].contiguous())
+    enc = JpegDeviceEncoder(h, w, quality=MJ_QUALITY, subsampled=sampling,
+                            device=device)
+    coder = JpegCoefEncoder(w, h, subsampled=sampling,
+                            quant_tables=enc.quant_tables)
+    dec = JpegCoefDecoder()
+    coeffs = dec.decode_batch(coder.encode_batch(*enc.encode_planes(*planes)))
+    kw = dict(out_size=(MJ_SMALL_OUT, MJ_SMALL_OUT), output="rgb_u8")
+    before = fc.LAUNCHES["fused_resize_csc"]
+    got = JpegDevicePipeline(dec.info, device=device, **kw)(*coeffs)
+    launched = fc.LAUNCHES["fused_resize_csc"] - before
+    cpu = JpegDevicePipeline(dec.info, device="cpu", **kw)(*coeffs)
+    e, share = _diff(got.cpu().numpy(), cpu.numpy())
+    line = (f"mjpeg {sampling} {h}x{w}->{MJ_SMALL_OUT}² b{b}: route torch "
+            f"(decode_postproc: FusedPipeline's CUDA gate takes 4:2:0), "
+            f"band kernel launches {launched}; rgb_u8 CUDA vs CPU max "
+            f"{e} code ({100 * share:.4f}% differ; tol 1)")
+    log(line)
+    require(got.shape == (b, MJ_SMALL_OUT, MJ_SMALL_OUT, 3) and e <= 1
+            and launched == 0, line)
+
+
+def _split_jpegs(data: bytes) -> list:
+    """Raw MJPEG → its images, split at SOI … EOI (entropy-coded data
+    stuffs every 0xFF, so 0xFFD9 marks an image's end only)."""
+    out, start = [], 0
+    while start < len(data):
+        require(data[start:start + 2] == b"\xff\xd8", "raw MJPEG: SOI")
+        end = data.index(b"\xff\xd9", start) + 2
+        out.append(data[start:end])
+        start = end
+    return out
+
+
+def _mjpeg_libav_paths(device, libav_missing, tmpdir, rgb) -> int:
+    """MjpegReader, MjpegTranscoder and MjpegClipLoader over an AVI from
+    MjpegWriter, where libav builds (else one line each); returns the
+    band kernel's launches."""
+    what = ("MjpegReader", "MjpegTranscoder", "MjpegClipLoader")
+    if libav_missing:
+        for name in what:
+            log(f"{name}: did not run: libav development files are absent "
+                f"({libav_missing}); it demuxes through FFmpegDemuxer")
+        return 0
+    from videoprocessingframework_torch.data import MjpegClipLoader
+    from videoprocessingframework_torch.io import (
+        MjpegReader,
+        MjpegTranscoder,
+        MjpegWriter,
+    )
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+
+    n = rgb.shape[0]
+    path = f"{tmpdir}/clip.avi"
+    with MjpegWriter(path, SRC_W, SRC_H, quality=MJ_QUALITY,
+                     container="avi", device=device) as wr:
+        wr.write_rgb(rgb)
+    before = fc.LAUNCHES["fused_resize_csc"]
+    rd = MjpegReader(path, out_size=(OUT, OUT), output="normalized",
+                     batch=4, device=device)
+    frames = sum(b.shape[0] for b in rd.batches())
+    st = MjpegTranscoder(path, quality=MJ_XC_QUALITY, out_size=MJ_XC,
+                         batch=4, device=device).run()
+    ld = MjpegClipLoader(path, clip_len=2, batch_size=2, out_size=(OUT, OUT),
+                         device=device)
+    clips = sum(b.shape[0] for b in ld.epoch(0))
+    launches = fc.LAUNCHES["fused_resize_csc"] - before
+    log(f"MjpegReader: {frames} frames; MjpegTranscoder: {st.frames} frames, "
+        f"{st.out_bytes} B, {st.fps:.1f} fps; MjpegClipLoader: {clips} clips;"
+        f" fused_resize_csc launches {launches}")
+    require(frames == n and st.frames == n and clips == n // 2
+            and launches >= 1, "MJPEG libav paths")
+    return launches
+
+
+def mjpeg_path(device, rates, libav_missing: str, tmpdir: str) -> dict:
+    """Phase 12: the split MJPEG codec at 1080p, batch 32 (see the module
+    docstring)."""
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+        PixelFormat,
+    )
+    from videoprocessingframework_torch.io.jpeg import (
+        JpegCoefDecoder,
+        JpegCoefEncoder,
+        MjpegWriter,
+    )
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.ops.fused import (
+        FusedPipeline,
+        encode_feed,
+    )
+    from videoprocessingframework_torch.ops.jpeg import (
+        JpegDeviceEncoder,
+        JpegDevicePipeline,
+        JpegDeviceTranscoder,
+        golden_decode,
+        golden_encode,
+    )
+    from videoprocessingframework_torch.ops.normalize import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from videoprocessingframework_torch.ops.resize import resize_matrix
+
+    t_start = time.perf_counter()
+    b, h, w = MJ_BATCH, SRC_H, SRC_W
+    space, rng = ColorSpace.BT_601, ColorRange.JPEG
+    rgb = _textured_rgb(b, h, w, 12, device)
+    fc.reset_launches()
+
+    # (a) device encode, then host encode
+    enc = JpegDeviceEncoder(h, w, quality=MJ_QUALITY, subsampled="420",
+                            device=device)
+    qts = (enc.quant_tables[0], enc.quant_tables[1], enc.quant_tables[1])
+    coeffs = enc.encode_rgb(rgb)
+    require(tuple(c.shape[0] for c in coeffs) == (b,) * 3
+            and all(c.dtype == torch.int16 for c in coeffs), "encode_rgb")
+    planes2 = encode_feed(rgb[:2], out_h=h, out_w=w, space=space, rng=rng)
+    host2 = _host(planes2)
+    c2 = _host(enc.encode_planes(*planes2))
+    cpu_enc = JpegDeviceEncoder(h, w, quality=MJ_QUALITY, subsampled="420",
+                                device="cpu")
+    e_cpu, s_cpu = _diffs(c2, _host(cpu_enc.encode_planes(*host2)))
+    e_gold, s_gold = _diffs(c2, golden_encode(host2, qts, enc.geometry))
+    e_feed, _ = _diffs(host2, _host(encode_feed(
+        rgb[:2].cpu(), out_h=h, out_w=w, space=space, rng=rng)))
+    coder = JpegCoefEncoder(w, h, quant_tables=enc.quant_tables)
+    coeffs_host = _host(coeffs)
+    jpegs = coder.encode_batch(*coeffs_host)
+    sizes = [len(j) for j in jpegs]
+    line = (f"mjpeg (a) JpegDeviceEncoder {h}x{w} q{MJ_QUALITY} 4:2:0 b{b}: "
+            f"coefficients CUDA vs CPU on the same planes max {e_cpu} "
+            f"({100 * s_cpu:.4f}% differ), vs golden_encode max {e_gold} "
+            f"({100 * s_gold:.4f}% differ) (tol 1 each); encode_feed CUDA vs "
+            f"CPU max {e_feed} code (tol 1); JpegCoefEncoder: {len(jpegs)} "
+            f"JPEGs of {min(sizes)}-{max(sizes)} B (mean "
+            f"{sum(sizes) / len(sizes):.0f} B)")
+    log(line)
+    require(max(e_cpu, e_gold, e_feed) <= 1 and len(jpegs) == b, line)
+
+    # (b) host decode, then device decode
+    dec = JpegCoefDecoder()
+    back = dec.decode_batch(jpegs)
+    same = all(np.array_equal(x, y) for x, y in zip(back, coeffs_host))
+    log(f"mjpeg (b) JpegCoefDecoder.decode_batch: coefficients "
+        f"{'equal' if same else 'DIFFER FROM'} (a)'s (entropy round trip)")
+    require(same, "entropy round trip")
+    info = dec.info
+    planes_pipe = JpegDevicePipeline(info, output="planes", device=device)
+    planes = planes_pipe(*back)
+    got2 = _host(p[:2] for p in planes)
+    gold = golden_decode([c[:2] for c in back], qts, planes_pipe.geometry)
+    cpu = _host(JpegDevicePipeline(info, output="planes", device="cpu")(
+        *(c[:2] for c in back)))
+    e_pg, s_pg = _diffs(got2, gold)
+    e_pc, s_pc = _diffs(got2, cpu)
+    line = (f"mjpeg (b) JpegDevicePipeline planes {h}x{w} b{b}: vs "
+            f"golden_decode max {e_pg} code ({100 * s_pg:.4f}% differ), vs "
+            f"CPU max {e_pc} ({100 * s_pc:.4f}% differ) (tol 1 each)")
+    log(line)
+    require(planes[0].shape == (b, h, w) and planes[1].shape ==
+            (b, h // 2, w // 2) and max(e_pg, e_pc) <= 1, line)
+    fused = {}
+    for out in ("normalized", "rgb_u8"):
+        pipe = JpegDevicePipeline(info, out_size=(OUT, OUT), output=out,
+                                  device=device)
+        before = fc.LAUNCHES["fused_resize_csc"]
+        got = pipe(*back)
+        launched = fc.LAUNCHES["fused_resize_csc"] - before
+        plain = FusedPipeline(PixelFormat.YUV420, space, rng, (OUT, OUT),
+                              output=out, kernel="torch", compute="highest",
+                              device=device)(*planes)
+        err = (got.float() - plain.float()).abs().max().item()
+        line = (f"mjpeg (b) JpegDevicePipeline {out} {h}x{w}->{OUT}² b{b}: "
+                f"route band kernel, launches {launched}; vs "
+                f"FusedPipeline(kernel='torch') on the same planes max "
+                f"{err:.3g} (tol {TOL[out]})")
+        log(line)
+        require(got.shape == (b, OUT, OUT, 3) and launched == 1
+                and err <= TOL[out], line)
+        fused[out] = pipe
+    for sampling, seed in (("422", 13), ("gray", 14)):
+        _small_route(device, sampling, seed)
+
+    # (c) transcode to 720p, re-encode, decode back
+    oh, ow = MJ_XC
+    xc = JpegDeviceTranscoder(info, quality=MJ_XC_QUALITY, out_size=MJ_XC,
+                              device=device)
+    xout = xc(*back)
+    x2 = _host(c[:2] for c in xout)
+    xcpu = JpegDeviceTranscoder(info, quality=MJ_XC_QUALITY, out_size=MJ_XC,
+                                device="cpu")(*(c[:2] for c in back))
+    e_xc, s_xc = _diffs(x2, _host(xcpu))
+    xjpegs = JpegCoefEncoder(ow, oh, quant_tables=xc.quant_tables)\
+        .encode_batch(*xout)
+    xdec = JpegCoefDecoder()
+    xback = xdec.decode_batch(xjpegs)
+    y720 = JpegDevicePipeline(xdec.info, output="planes", device=device)(
+        *(c[:2] for c in xback))[0].cpu().numpy()
+    rm, cm = resize_matrix(h, oh).astype(np.float64), \
+        resize_matrix(w, ow).astype(np.float64)
+    src = np.clip(np.rint(rm @ got2[0].astype(np.float64) @ cm.T), 0, 255)
+    psnr = min(_psnr(y720[i], src[i]) for i in range(2))
+    line = (f"mjpeg (c) JpegDeviceTranscoder {h}x{w}->{oh}x{ow} "
+            f"q{MJ_QUALITY}->q{MJ_XC_QUALITY} b{b}: CUDA vs CPU coefficients "
+            f"max {e_xc} ({100 * s_xc:.4f}% differ; tol 1); re-encoded "
+            f"{sum(len(j) for j in xjpegs) // len(xjpegs)} B a frame, decoded "
+            f"back: luma PSNR vs the source resized {psnr:.2f} dB (bar 30)")
+    log(line)
+    require(xout[0].shape[0] == b and e_xc <= 1 and psnr > 30.0, line)
+
+    # (d) raw writer; the libav-only paths
+    raw = f"{tmpdir}/raw.mjpeg"
+    with MjpegWriter(raw, w, h, quality=MJ_QUALITY, device=device) as wr:
+        wr.write_rgb(rgb[:MJ_RAW])
+    with open(raw, "rb") as f:
+        images = _split_jpegs(f.read())
+    rdec = JpegCoefDecoder()
+    rframes = [rdec.decode(j) for j in images]
+    line = (f"mjpeg (d) MjpegWriter(container=None): {len(images)} JPEGs in "
+            f"{raw.rsplit('/', 1)[-1]}, each decodes at "
+            f"{rdec.info.width}x{rdec.info.height}")
+    log(line)
+    require(len(rframes) == MJ_RAW and (rdec.info.width, rdec.info.height)
+            == (w, h), line)
+    libav_launches = _mjpeg_libav_paths(device, libav_missing, tmpdir,
+                                        rgb[:MJ_RAW])
+
+    # the chains, host clock: bytes → host decode (default workers) →
+    # device → normalized 224²; RGB on the card → coefficients → bytes
+    workers = min(8, os.cpu_count() or 1)
+    pipe = fused["normalized"]
+
+    def dec_one(state, data):
+        return state.setdefault("c", JpegCoefDecoder()).decode(data)
+
+    def enc_one(state, i):
+        return state.setdefault("c", JpegCoefEncoder(
+            w, h, quant_tables=enc.quant_tables)).encode(
+                *(c[i] for c in host_c))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MJ_REPS):
+        frames = _threaded(dec_one, jpegs, workers)
+        out = pipe(*(np.stack([f[c] for f in frames]) for c in range(3)))
+        torch.cuda.synchronize()
+    dec_fps = MJ_REPS * b / (time.perf_counter() - t0)
+    launches = fc.LAUNCHES["fused_resize_csc"]
+    require(bool(torch.isfinite(out).all()), "chain output")
+    t0 = time.perf_counter()
+    for _ in range(MJ_REPS):
+        host_c = _host(enc.encode_rgb(rgb))
+        encoded = _threaded(enc_one, range(b), workers)
+    enc_fps = MJ_REPS * b / (time.perf_counter() - t0)
+    require(encoded == jpegs, "encode chain bytes")
+    log(f"mjpeg chains (host clock, {MJ_REPS} passes of {b}, {workers} "
+        f"workers): JPEG bytes->host decode->device->normalized {OUT}² "
+        f"{dec_fps:.1f} frames/s; RGB on the card->coefficients->JPEG bytes "
+        f"{enc_fps:.1f} frames/s; fused_resize_csc launches in phase 12 "
+        f"{launches + libav_launches}")
+    require(launches >= 2 + MJ_REPS, f"{launches} kernel launches")
+
+    # timings
+    ent = _entropy_timings(jpegs, [tuple(c[i] for c in coeffs_host)
+                                   for i in range(b)], enc.quant_tables,
+                           workers)
+    log(f"mjpeg host entropy ms a frame ({h}x{w} q{MJ_QUALITY}): decode "
+        f"{ent['decode_1']:.3f} at 1 worker, {ent[f'decode_{workers}']:.3f} "
+        f"at {workers}; encode {ent['encode_1']:.3f} at 1, "
+        f"{ent[f'encode_{workers}']:.3f} at {workers}")
+    dev_c = coeffs
+    idct_ms = cuda_ms(lambda: planes_pipe.planes(*dev_c))
+    bound, by, nbytes = _idct_bound(dev_c, planes, *rates)
+    gflop = 2 * 64 * 64 * sum(c.shape[0] * c.shape[1] for c in dev_c) / 1e9
+    kern_ms = cuda_ms(lambda: fc.fused_yuv420_resize_rgb(
+        *planes, out_h=OUT, out_w=OUT, space=space, rng=rng,
+        output="normalized", mean=IMAGENET_MEAN, std=IMAGENET_STD))
+    kbound, kby, _ = kernel_bound(b, h, w, OUT, OUT, 4, *rates)
+    fdct_ms = cuda_ms(lambda: enc.encode_planes(*planes))
+    log(f"time mjpeg dequant+IDCT+assembly {h}x{w} b{b} (3 torch.matmul in "
+        f"float32, TF32 off): {idct_ms:.4f} ms per batch, "
+        f"{100 * bound / idct_ms:.1f}% of bound {bound:.4f} ms ({by}; "
+        f"{nbytes / 1e6:.1f} MB, {gflop:.1f} GFLOP); "
+        f"level shift+fDCT+quant of the same planes {fdct_ms:.4f} ms; "
+        f"fused_resize_csc on these planes (normalized {OUT}²) "
+        f"{kern_ms:.4f} ms, {100 * kbound / kern_ms:.1f}% of bound "
+        f"{kbound:.4f} ms ({kby})")
+    secs = time.perf_counter() - t_start
+    log(f"phase 12: {secs:.1f} s")
+    return {"launches": launches + libav_launches, "idct_ms": idct_ms,
+            "idct_bound_ms": bound, "kernel_ms": kern_ms,
+            "decode_fps": dec_fps, "encode_fps": enc_fps, **ent}
+
+
 # ---- main ----------------------------------------------------------------------
 
 
@@ -2039,6 +2494,8 @@ def main() -> int:
         train = training_path(device, missing, tmp)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
         xcode = transcode_path(device, rates, missing, tmp)
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        mjpeg = mjpeg_path(device, rates, missing, tmp)
 
     t = times["normalized"]
     c = conv["times"]["nv12"]
@@ -2049,7 +2506,8 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": run["launches"] + served["image"]["launches"]
         + served["clip"]["launches"] + train["plain"]["launches"]
-        + xcode["transcode"]["launches"] + xcode["libav"]["launches"],
+        + xcode["transcode"]["launches"] + xcode["libav"]["launches"]
+        + mjpeg["launches"],
         "max_abs_err": run["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],

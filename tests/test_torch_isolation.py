@@ -3,6 +3,7 @@
 in neither JAX, Flax, optax nor the JAX package. Checked in a fresh
 interpreter."""
 
+import os
 import pathlib
 import subprocess
 import sys
@@ -39,9 +40,9 @@ def test_port_imports_no_jax():
     )
     assert r.returncode == 0, r.stderr
     names, n, bad = r.stdout.strip().splitlines()[-3:]
-    assert int(n) >= 55  # every module of the port was imported
+    assert int(n) >= 59  # every module of the port was imported
     for mod in ("compat", "parallel.streams", "io.transcode", "io.muxer",
-                "io.encoder"):
+                "io.encoder", "io.jpeg", "ops.jpeg", "data.mjpeg"):
         assert f"videoprocessingframework_torch.{mod}" in names.split()
     assert bad == "BAD []"
 
@@ -60,3 +61,40 @@ def test_port_sources_name_no_jax():
                     "jax", "flax", "jaxlib", "optax",
                     "videoprocessingframework_tpu"
                 ), f"{f}: {s}"
+
+
+_JPEG_ALONE = r"""
+import pathlib, sys
+import numpy as np
+from videoprocessingframework_torch.io import _lib, build
+missing = build.libav_missing()
+assert missing, "pkg-config found libav"
+build.OUT_DIR = pathlib.Path(sys.argv[1])  # a fresh build, not the cache
+from videoprocessingframework_torch.io import jpeg
+coder = jpeg.JpegCoefEncoder(16, 16)
+coeffs = [np.zeros((4, 64), np.int16)] + [np.zeros((1, 64), np.int16)] * 2
+coeffs[0][:, 0] = [10, -20, 30, -40]
+back = jpeg.JpegCoefDecoder().decode(coder.encode(*coeffs))
+assert all(np.array_equal(b, c) for b, c in zip(back, coeffs))
+maps = pathlib.Path("/proc/self/maps").read_text()
+assert "libvpf_jpeg" in maps and "libvpf_host" not in maps
+assert _lib.load.cache_info().currsize == 0
+print(sorted(p.name for p in build.OUT_DIR.glob("*.so")))
+"""
+
+
+def test_jpeg_library_builds_without_libav(tmp_path):
+    """io.jpeg builds libvpf_jpeg with g++ alone: pkg-config, pointed at
+    an empty directory, finds no libav, and libvpf_host is neither built
+    nor loaded."""
+    empty = tmp_path / "pkgconfig"
+    empty.mkdir()
+    env = {**os.environ, "PKG_CONFIG_PATH": str(empty),
+           "PKG_CONFIG_LIBDIR": str(empty)}
+    r = subprocess.run(
+        [sys.executable, "-c", _JPEG_ALONE, str(tmp_path / "build")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300, env=env,
+    )
+    assert r.returncode == 0, r.stderr
+    libs = r.stdout.strip().splitlines()[-1]
+    assert "libvpf_jpeg-" in libs and "libvpf_host" not in libs

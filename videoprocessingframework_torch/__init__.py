@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of videoprocessingframework_tpu for NVIDIA Hopper.
 
-Three paths run on the card:
+Six paths run on the card:
 
 * host libav decode (io/pool.py) → one hand-written CUDA kernel for
   resize + colour conversion (ops/fused_cuda.py,
@@ -15,10 +15,22 @@ Three paths run on the card:
 * training: video files → ``VideoReader`` (io/decoder.py) →
   ``VideoClipLoader`` (data/: pinned ring, one upload a batch on a side
   stream) → the fused kernel, or ``AugmentPipeline`` + ``mixup_cutmix``
-  (ops/augment.py) → ``make_train_step`` (parallel/train.py).
+  (ops/augment.py) → ``make_train_step`` (parallel/train.py);
+* the encode side: device RGB → ``encode_feed`` (ops/fused.py) → host
+  planes → ``VideoEncoder`` → ``StreamMuxer`` (io/), ``Transcoder``,
+  ``MultiStreamPipeline`` (parallel/streams.py), and the reference's API
+  (compat.py);
+* the split MJPEG codec: host entropy decode (io/jpeg.py over
+  io/native/jpeg.cpp, ``libvpf_jpeg``, which needs no libav) → device
+  dequant + IDCT (ops/jpeg.py) → the fused kernel; device fDCT + quant →
+  host entropy encode; ``JpegDeviceTranscoder``, ``MjpegReader`` /
+  ``MjpegWriter`` / ``MjpegTranscoder`` and ``MjpegClipLoader``
+  (data/mjpeg.py).
 
-The device analysis ops (ops/metrics.py, flow.py, stabilize.py,
-scenecut.py) are plain torch, as the JAX package left them to XLA.
+The stages that demux, decode or encode through libav need its
+development files where the package is built. The device analysis ops
+(ops/metrics.py, flow.py, stabilize.py, scenecut.py) are plain torch, as
+the JAX package left them to XLA.
 """
 
 __version__ = "0.1.0"
@@ -44,6 +56,7 @@ from .core.packet import (  # noqa: F401
     SeekContext,
 )
 from .core.surface import HostBuffer, Surface, SurfacePlane  # noqa: F401
+from .data.mjpeg import MjpegClipLoader  # noqa: F401
 from .ops.convert import SurfaceConverter  # noqa: F401
 from .ops.remap import SurfaceRemaper  # noqa: F401
 from .ops.resize import SurfaceResizer  # noqa: F401

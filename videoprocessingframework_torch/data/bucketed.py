@@ -2,8 +2,9 @@
 the counterpart of the JAX package's ``data/bucketed.py``.
 
 One loader runs one batch shape, so :class:`BucketedClipLoader` groups the
-files by geometry, builds one :class:`~.loader.VideoClipLoader` per bucket
-(each with its own ring) and interleaves their batch streams by a pure
+files by geometry, builds one :class:`~.loader.VideoClipLoader` (or
+``loader_cls``, e.g. :class:`~.mjpeg.MjpegClipLoader`) per bucket (each
+with its own ring) and interleaves their batch streams by a pure
 function of (seed, epoch): batches are drawn from the buckets in
 proportion to their remaining size, and every file is consumed once per
 epoch. A shared ``out_size`` makes every bucket emit one output shape.
@@ -25,13 +26,15 @@ class BucketedClipLoader:
 
     Takes :class:`VideoClipLoader`'s keywords; ``out_size`` is required
     and ``output="packed"`` is refused (both keep the merged stream one
-    shape). ``labels`` align with ``sources``.
+    shape). ``labels`` align with ``sources``. ``loader_cls``: the loader
+    of each bucket, ``VideoClipLoader`` when None, or ``MjpegClipLoader``
+    for MJPEG corpora (the same constructor contract).
     """
 
     def __init__(self, sources: Sequence[str], out_size: tuple,
                  labels: Optional[Sequence] = None,
                  lengths: Optional[Sequence[int]] = None, seed: int = 0,
-                 **kw):
+                 loader_cls=None, **kw):
         if kw.get("output", "normalized") == "packed":
             raise ValueError(
                 "packed output is per-geometry; use out_size-normalizing "
@@ -48,11 +51,13 @@ class BucketedClipLoader:
             finally:
                 d.close()
         self.seed = int(seed)
+        if loader_cls is None:
+            loader_cls = VideoClipLoader
         self.loaders: list = []
         self.bucket_files: list = []
         for geo in sorted(buckets):
             idxs = buckets[geo]
-            self.loaders.append(VideoClipLoader(
+            self.loaders.append(loader_cls(
                 [sources[i] for i in idxs], out_size=out_size,
                 labels=None if labels is None else [labels[i] for i in idxs],
                 lengths=None if lengths is None else [lengths[i]

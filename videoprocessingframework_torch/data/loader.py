@@ -36,7 +36,7 @@ import torch
 from ..core import geometry
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
 from ..core.exceptions import UnseekableInputError
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, upload
 from ..utils.tracing import StageTimer, trace_range
 
 __all__ = ["VideoCorpus", "ClipSampler", "VideoClipLoader", "HostClipLoader"]
@@ -339,11 +339,6 @@ class _ClipLoaderBase:
             raise ValueError(
                 f"{len(labels)} labels for {len(self.corpus)} corpus files")
         self.labels = np.asarray(labels) if labels is not None else None
-        w, h = self.corpus.width, self.corpus.height
-        if w % 2 or h % 2:
-            raise ValueError(
-                f"YUV420 packing needs even dimensions, corpus is {w}x{h}")
-        self._rows = geometry.host_frame_size(PixelFormat.YUV420, w, h) // w
         self._epoch = 0
         self._resume_clips = 0  # one-shot skip set by load_state_dict
         # decode (incl. GOP replay, counted apart), dispatch (upload +
@@ -354,6 +349,15 @@ class _ClipLoaderBase:
         self._slots: list = []
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+
+    def _init_packed_rows(self) -> None:
+        """``self._rows``: rows of one packed YUV420 frame in the ring (the
+        pixel loaders' layout; even dimensions only)."""
+        w, h = self.corpus.width, self.corpus.height
+        if w % 2 or h % 2:
+            raise ValueError(
+                f"YUV420 packing needs even dimensions, corpus is {w}x{h}")
+        self._rows = geometry.host_frame_size(PixelFormat.YUV420, w, h) // w
 
     def _init_pipeline(self, *, out_size, output, method, kernel, compute,
                        augment, color_space, color_range, seed) -> None:
@@ -443,28 +447,20 @@ class _ClipLoaderBase:
         self._free = list(range(count))
         return [s.numpy() for s in self._slots]
 
+    def _batch_labels(self, files: list):
+        return (self.labels[np.asarray(files)]
+                if self.labels is not None else None)
+
     def _dispatch(self, slot: int, count: int, files: list) -> tuple:
         """Slot → device (one copy) → the pipeline; returns ``(out,
         labels, count, slot, uploaded)``, where ``uploaded`` (an event on
         CUDA, else None) is the slot's recycle barrier."""
-        labels = (self.labels[np.asarray(files)]
-                  if self.labels is not None else None)
+        labels = self._batch_labels(files)
         host = self._slots[slot][:count].view(-1, self._rows,
                                               self.corpus.width)
         with trace_range("ClipBatchDispatch"):
-            uploaded = None
-            if self._copy_stream is None:
-                staged = host.clone()  # from_numpy slots alias the ring
-            else:
-                cur = torch.cuda.current_stream(self.device)
-                with torch.cuda.stream(self._copy_stream):
-                    staged = torch.empty(host.shape, dtype=torch.uint8,
-                                         device=self.device)
-                    staged.copy_(host, non_blocking=True)
-                    uploaded = torch.cuda.Event()
-                    uploaded.record(self._copy_stream)
-                cur.wait_event(uploaded)
-                staged.record_stream(cur)
+            (staged,), uploaded = upload([host], self.device,
+                                         self._copy_stream)
             if self.pipeline is None:
                 out = staged
             elif self._augmented:
@@ -503,7 +499,11 @@ class _ClipLoaderBase:
                 if uploaded is not None:
                     uploaded.synchronize()  # the slot's copy is over
             self._free.append(slot)
-            out = out.reshape((b, T) + tuple(out.shape[1:]))
+            if isinstance(out, tuple):  # planes
+                out = tuple(o.reshape((b, T) + tuple(o.shape[1:]))
+                            for o in out)
+            else:
+                out = out.reshape((b, T) + tuple(out.shape[1:]))
             self._pos[1] += b
             return (out, labels) if labels is not None else out
 
@@ -623,6 +623,7 @@ class VideoClipLoader(_ClipLoaderBase):
             drop_last=drop_last, workers=workers, prefetch=prefetch,
             device=device, shard_index=shard_index, shard_count=shard_count,
             labels=labels, sampler_starts=starts)
+        self._init_packed_rows()
         self.decode_threads = decode_threads
         self._init_pipeline(
             out_size=out_size, output=output, method=method, kernel=kernel,
@@ -737,6 +738,7 @@ class HostClipLoader(_ClipLoaderBase):
             batch_size=batch_size, shuffle=shuffle, seed=seed, hop=hop,
             drop_last=drop_last, workers=1, prefetch=prefetch, device=device,
             shard_index=shard_index, shard_count=shard_count, labels=labels)
+        self._init_packed_rows()
         self.frames = np.stack([
             seeded_frames(frames_per_stream, self._rows, width, seed + k)
             for k in range(n_streams)])

@@ -1,11 +1,14 @@
-"""Build the native host runtime (``libvpf_host.so``) from the package's
-own copy of the libav C++ sources (``io/native/``).
+"""Build the native host libraries from the package's own C++ sources
+(``io/native/``), at first use with g++, into the gitignored
+``io/_native_build/``, under a file lock with an atomic rename (see
+``utils/build_cache.py``):
 
-It holds the demuxer, the decoder, the decode pool, the encoder and the
-muxer; the JPEG entropy coder waits for its slice. The library is built
-at first use with g++ against the libav development files found by
-pkg-config, into the gitignored ``io/_native_build/``, under a file lock
-with an atomic rename (see ``utils/build_cache.py``).
+* ``libvpf_host`` (:func:`build`): the libav runtime — demuxer, decoder,
+  decode pool, encoder and muxer — against the libav development files
+  found by pkg-config;
+* ``libvpf_jpeg`` (:func:`build_jpeg`): the JPEG entropy coder alone
+  (``jpeg.cpp`` + ``status.hpp``), which needs no libav, so it builds
+  wherever g++ does.
 """
 
 from __future__ import annotations
@@ -49,8 +52,20 @@ def build() -> pathlib.Path:
     flags = _pkg_config("--cflags") + _pkg_config("--libs")
     return cached_build(
         OUT_DIR, "libvpf_host",
-        [SRC / "common.hpp"] + [SRC / s for s in SOURCES],
+        [SRC / "status.hpp", SRC / "common.hpp"] + [SRC / s for s in SOURCES],
         lambda out: [[["g++", *CFLAGS, *[str(SRC / s) for s in SOURCES],
                        *flags, "-o", str(out)]]],
         key=" ".join(CFLAGS + flags),
+    )
+
+
+def build_jpeg() -> pathlib.Path:
+    """Compile (once per source hash) and return ``libvpf_jpeg``'s path:
+    g++ and the package's sources only, no pkg-config."""
+    return cached_build(
+        OUT_DIR, "libvpf_jpeg",
+        [SRC / "status.hpp", SRC / "jpeg.cpp"],
+        lambda out: [[["g++", *CFLAGS, str(SRC / "jpeg.cpp"), "-o",
+                       str(out)]]],
+        key=" ".join(CFLAGS),
     )

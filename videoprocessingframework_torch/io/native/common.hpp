@@ -8,11 +8,7 @@
  */
 #pragma once
 
-#include <cstdarg>
-#include <cstdint>
-#include <cstdio>
-#include <cstring>
-#include <string>
+#include "status.hpp"
 
 extern "C" {
 #include <libavcodec/avcodec.h>
@@ -26,8 +22,6 @@ extern "C" {
 #include <libavutil/pixdesc.h>
 #include <libavutil/rational.h>
 }
-
-#define VPF_API extern "C" __attribute__((visibility("default")))
 
 /* ---- enums shared with Python (values match core/enums.py) ---- */
 
@@ -67,16 +61,6 @@ enum VpfCodecId {
   VPF_CODEC_MPEG2 = 6,
   VPF_CODEC_MJPEG = 7,
   VPF_CODEC_AV1 = 8,
-};
-
-/* ---- return codes ---- */
-enum VpfStatus {
-  VPF_OK = 1,          /* produced output */
-  VPF_NEED_MORE = 0,   /* no output yet / EOF-drained */
-  VPF_ERR = -1,        /* generic error; see vpf_last_error() */
-  VPF_ERR_DECODE = -2, /* decode error: caller should reset (HwReset analog) */
-  VPF_ERR_PARSE = -3,  /* bitstream parse error (parser-exception analog) */
-  VPF_ERR_EOF = -4,    /* end of stream */
 };
 
 /* ---- PODs mirrored in Python via ctypes ---- */
@@ -146,30 +130,13 @@ typedef struct VpfMotionVector {
   uint16_t motion_scale;
 } VpfMotionVector;
 
-/* ---- thread-local error reporting ---- */
-
-inline std::string& vpf_error_slot() {
-  thread_local std::string err;
-  return err;
-}
-
-inline int vpf_set_error(int code, const char* fmt, ...) {
-  char buf[1024];
-  va_list ap;
-  va_start(ap, fmt);
-  vsnprintf(buf, sizeof(buf), fmt, ap);
-  va_end(ap);
-  vpf_error_slot() = buf;
-  return code;
-}
+/* ---- libav error reporting ---- */
 
 inline int vpf_set_av_error(int code, const char* what, int averr) {
   char ebuf[AV_ERROR_MAX_STRING_SIZE] = {0};
   av_strerror(averr, ebuf, sizeof(ebuf));
   return vpf_set_error(code, "%s: %s (%d)", what, ebuf, averr);
 }
-
-VPF_API const char* vpf_last_error(void);
 
 /* ---- mapping helpers ---- */
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import numpy as np
 import torch
 
@@ -50,3 +52,32 @@ def check_f32_matmul(x: torch.Tensor, what: str) -> None:
             f"{what} computes in full float32: turn TF32 matmul off "
             "(torch.backends.cuda.matmul.allow_tf32 = False)"
         )
+
+
+def upload(host: Sequence[torch.Tensor], device: torch.device,
+           stream: Optional["torch.cuda.Stream"]) -> tuple:
+    """Host tensors → ``device`` for the current stream: ``(tensors,
+    uploaded)``.
+
+    On CUDA (``stream`` a side stream) each tensor is one non-blocking
+    copy on ``stream``; the current stream waits on the event
+    ``uploaded``, which is also the host tensors' recycle barrier: they
+    may be written again once it has completed. Pinned host tensors make
+    the copies DMA straight from them. Without a stream (the CPU) the
+    tensors are cloned, since a ring of ``from_numpy`` views would alias
+    them, and ``uploaded`` is None.
+    """
+    if stream is None:
+        return [h.clone() for h in host], None
+    cur = torch.cuda.current_stream(device)
+    with torch.cuda.stream(stream):
+        staged = [torch.empty(h.shape, dtype=h.dtype, device=device)
+                  for h in host]
+        for dst, src in zip(staged, host):
+            dst.copy_(src, non_blocking=True)
+        uploaded = torch.cuda.Event()
+        uploaded.record(stream)
+    cur.wait_event(uploaded)
+    for t in staged:
+        t.record_stream(cur)
+    return staged, uploaded
