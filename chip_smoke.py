@@ -106,9 +106,29 @@ Phases, each of which raises on failure:
    ms (CUDA events) beside its bound, the band kernel on these planes,
    and the decode and encode chains in frames/s (host clock).
 
+13. The parallel layer (parallel/mesh.py, multidevice.py, multihost.py,
+   the dp × tp step) in a world of one, NCCL, mesh (1, 1) ("data",
+   "model"), FileStore rendezvous in the run's temp dir, 60 s timeout:
+   (a) ShardedVideoPipeline(FusedPipeline(YUV420, BT.709, MPEG, 224²,
+   lanczos, normalized, kernel="cuda")) over 48 seeded 1080p ×32 batches
+   of HostBatchRing: the local shard bit-equal to the single-device
+   FusedPipeline, sharded_batch_matches_single_device, the kernel's
+   launches ≥ batches, ms a batch beside phase 4's kernel ms; (b)
+   GlobalBatchAssembler over the same ring through the same pipeline;
+   (c) phase 10 (a)'s trainer as the dp × tp step (the loader with
+   sharding=, video-ResNet-50, bf16, SGD 0.01 momentum 0.9, 20 steps):
+   losses finite and falling, launches ≥ steps, step ms, host enqueue,
+   device busy and peak memory beside phase 10 (a)'s; one float32 step
+   of resnet18_like at 64² on the mesh vs the single-device step (TF32
+   off, phase 10's bars); (d) where libav builds, MultiDeviceStreamPipeline
+   over [cuda:0] and MultiHostVideoPipeline, else one line each; (e) two
+   gloo ranks on the one card, mesh (2, 1), the dp step of resnet18_like
+   vs the single-device step — or the error, on a line of its own, where
+   gloo refuses a CUDA collective the step needs.
+
 The line before the last is the per-kernel JSON record (launches of
-fused_resize_csc counted over phases 5, 8, 10 (a), 11a, 11c and 12, of
-csc_rgb_planar over phases 6 and 11b); the last line is
+fused_resize_csc counted over phases 5, 8, 10 (a), 11a, 11c, 12 and 13,
+of csc_rgb_planar over phases 6 and 11b); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2461,6 +2481,366 @@ def mjpeg_path(device, rates, libav_missing: str, tmpdir: str) -> dict:
             "decode_fps": dec_fps, "encode_fps": enc_fps, **ent}
 
 
+# ---- phase 13 ------------------------------------------------------------------
+
+
+#: phase 13: batches of the sharded pipeline's and the assembler's runs
+SHARD_BATCHES = 48
+#: init and collective timeout of every world (s): a collective that
+#: hangs fails by it
+DIST_TIMEOUT_S = 60
+#: the two-rank world on the one card (13e): join timeout (s)
+TWO_RANK_TIMEOUT_S = 240
+#: a gloo error that says it does not take CUDA tensors for a collective
+GLOO_REFUSAL = re.compile(r"gloo|not supported|unsupported|only.*cpu",
+                          re.IGNORECASE)
+
+
+def _start_world(backend: str, store_path: str, rank: int, world: int):
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        backend, store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+
+
+def _sharded_pipe(device, mesh, what, n_batches, run_one):
+    """``run_one(planes) -> local output`` over ``n_batches`` seeded 1080p
+    batches of BATCH from HostBatchRing; returns (launches, host ms a
+    batch, first planes, first output)."""
+    from videoprocessingframework_torch.io import HostBatchRing
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+
+    ring = HostBatchRing(SRC_W, SRC_H, BATCH, 3, n_buffers=3, seed=1,
+                         device=device)
+    for planes in iter(ring.acquire_planes, None):  # warm-up
+        run_one(planes)
+        ring.release()
+    ring.rewind(n_batches)
+    first = {}
+    fc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for planes in iter(ring.acquire_planes, None):
+        out = run_one(planes)
+        # the upload copied the slot into pinned staging before returning
+        ring.release()
+        if not first:
+            first.update(planes=planes, out=out)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n_batches
+    launches = fc.LAUNCHES["fused_resize_csc"]
+    log(f"{what}: {n_batches} batches of {BATCH} {SRC_W}x{SRC_H} -> "
+        f"{OUT}x{OUT} normalized, {ms:.2f} ms a batch (host clock, upload "
+        f"included); fused_resize_csc launches in this run: {launches}")
+    require(launches >= n_batches, f"{what}: {launches} kernel launches "
+            f"for {n_batches} batches")
+    return launches, ms, first["planes"], first["out"]
+
+
+def sharded_pipelines(device, mesh, kernel_ms) -> dict:
+    """13 (a) ShardedVideoPipeline and (b) GlobalBatchAssembler over
+    HostBatchRing, through FusedPipeline(kernel="cuda") on the mesh."""
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+        PixelFormat,
+    )
+    from videoprocessingframework_torch.ops.fused import FusedPipeline
+    from videoprocessingframework_torch.parallel.multidevice import (
+        ShardedVideoPipeline,
+        sharded_batch_matches_single_device,
+    )
+    from videoprocessingframework_torch.parallel.multihost import (
+        GlobalBatchAssembler,
+    )
+
+    post = FusedPipeline(PixelFormat.YUV420, ColorSpace.BT_709,
+                         ColorRange.MPEG, (OUT, OUT), method="lanczos",
+                         output="normalized", kernel="cuda")
+    sharded = ShardedVideoPipeline(post, mesh=mesh)
+
+    def single(planes):
+        return post(*[torch.from_numpy(p).to(device) for p in planes])
+
+    launches_a, ms_a, planes, out = _sharded_pipe(
+        device, mesh, "(13a) ShardedVideoPipeline", SHARD_BATCHES,
+        lambda p: sharded(p).to_local())
+    same = torch.equal(out, single(planes))
+    matches = sharded_batch_matches_single_device(post, planes, mesh)
+    call_ms = cuda_ms(lambda: sharded(planes), reps=10)
+    log(f"(13a) local shard vs the single-device FusedPipeline on the same "
+        f"planes: bit-equal {same}; sharded_batch_matches_single_device "
+        f"{matches}; {call_ms:.3f} ms a call (CUDA events: the upload's wait "
+        f"and the kernel), the kernel alone {kernel_ms:.4f} ms (phase 4)")
+    require(same and matches, "sharded pipeline vs single device")
+
+    asm = GlobalBatchAssembler(mesh)
+
+    def assembled(planes):
+        g = asm.global_batch(planes)
+        return post(*[p.to_local() for p in g])
+
+    launches_b, ms_b, planes, out = _sharded_pipe(
+        device, mesh, "(13b) GlobalBatchAssembler -> FusedPipeline",
+        SHARD_BATCHES, assembled)
+    same = torch.equal(out, single(planes))
+    log(f"(13b) local shard vs the single-device FusedPipeline: bit-equal "
+        f"{same}")
+    require(same, "assembled batch vs single device")
+    return {"launches": launches_a + launches_b, "ms_a": ms_a, "ms_b": ms_b,
+            "call_ms": call_ms}
+
+
+def _host_profile(fn, reps=2):
+    """(host ms per call, the ten ops of the longest self host time as
+    (name, calls per call, ms per call)) over ``reps`` calls, from a
+    torch.profiler trace of the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count // reps, e.self_cpu_time_total / 1e3 / reps)
+            for e in prof.key_averages()]
+    rows.sort(key=lambda r: -r[2])
+    return ms, rows[:10]
+
+
+def _mesh_step_vs_single(device, mesh, n_images, label):
+    """One float32 step (TF32 off) of resnet18_like at 64² on ``mesh``
+    against the single-device step on the whole batch, from the same
+    weights: (loss relative, parameters relative) after printing them."""
+    from videoprocessingframework_torch.models import resnet18_like
+    from videoprocessingframework_torch.parallel.train import (
+        full_state_dict,
+        make_train_step,
+    )
+
+    torch.manual_seed(13)
+    single = resnet18_like(8, torch.float32).to(device)
+    meshed = resnet18_like(8, torch.float32).to(device)
+    meshed.load_state_dict(single.state_dict())
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn((n_images, 64, 64, 3), generator=g).to(device)
+    labels = torch.arange(n_images).remainder(8).to(device)
+
+    def sgd(m):
+        return torch.optim.SGD(m.parameters(), lr=0.01, momentum=0.9)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = make_train_step(meshed, sgd(meshed), mesh)(
+            {"image": x, "label": labels})
+        want = make_train_step(single, sgd(single))(
+            {"image": x, "label": labels})
+        sd = full_state_dict(meshed)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    loss_rel = _rel(got["loss"], want["loss"])
+    params_rel = max(_rel(sd[k], v) for k, v in single.state_dict().items()
+                     if v.is_floating_point())
+    line = (f"{label}: one float32 step (TF32 off) of resnet18_like 64x64 "
+            f"batch {n_images}, mesh {tuple(mesh.shape)} vs the single-device "
+            f"step on the whole batch: loss {got['loss'].item():.6f} vs "
+            f"{want['loss'].item():.6f}, relative {loss_rel:.3g} (tol "
+            f"{STEP_LOSS_TOL}); parameters and running statistics, largest "
+            f"relative difference {params_rel:.3g} (tol {STEP_PARAM_TOL})")
+    log(line)
+    require(loss_rel <= STEP_LOSS_TOL and params_rel <= STEP_PARAM_TOL, line)
+    return loss_rel, params_rel
+
+
+def sharded_trainer(device, mesh, make_loader, plain) -> dict:
+    """13 (c): phase 10 (a)'s trainer as the dp × tp step on the mesh, fed
+    by the loader with sharding=; then the float32 step check."""
+    from videoprocessingframework_torch.models import video_resnet50
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.parallel import make_train_step
+    from videoprocessingframework_torch.parallel.mesh import batch_sharding
+
+    loader = make_loader(kernel="cuda", sharding=batch_sharding(mesh))
+    torch.manual_seed(10)
+    model = video_resnet50(400, "attention", dtype=torch.bfloat16,
+                           frames=TRAIN_T).to(device,
+                                              memory_format=torch.channels_last)
+    step = make_train_step(model, torch.optim.SGD(
+        model.parameters(), lr=0.01, momentum=0.9), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launches()
+    losses, first, wall = _fed_loop(loader, step, PLAIN_STEPS,
+                                    lambda x, labels, i: (x, labels))
+    launches = fc.LAUNCHES["fused_resize_csc"]
+    log(f"(13c) sharded loader -> fused_resize_csc -> video-ResNet-50 dp x tp "
+        f"step on mesh {tuple(mesh.shape)}: fused_resize_csc launches in "
+        f"this run: {launches}")
+    require(launches >= PLAIN_STEPS,
+            f"{launches} kernel launches for {PLAIN_STEPS} steps")
+    batch = {"image": first["x"], "label": first["labels"]}
+    rec = _train_report("(13c) dp x tp trainer", losses, wall, loader, step,
+                        batch, plain["kernel_ms"])
+    log(f"(13c) beside phase 10 (a), same run: step {rec['step_ms']:.2f} vs "
+        f"{plain['step_ms']:.2f} ms (CUDA events), host enqueue "
+        f"{rec['enqueue_ms']:.2f} vs {plain['enqueue_ms']:.2f} ms, device busy "
+        f"{rec['busy_ms']:.2f} vs {plain['busy_ms']:.2f} ms, peak memory "
+        f"{rec['peak_gib']:.2f} vs {plain['peak_gib']:.2f} GiB")
+    host_ms, rows = _host_profile(lambda: step(batch))
+    log(f"(13c) host time of a step under torch.profiler {host_ms:.2f} ms; "
+        f"ops of the longest self host time (calls, ms a step): "
+        + "; ".join(f"{k[:48]} {n} {t:.2f}" for k, n, t in rows))
+    del model, step, loader, first, batch
+    torch.cuda.empty_cache()
+    loss_rel, params_rel = _mesh_step_vs_single(device, mesh, 8, "(13c)")
+    return dict(rec, launches=launches, loss_rel=loss_rel,
+                params_rel=params_rel)
+
+
+def multi_device_paths(device, mesh, libav_missing, tmpdir) -> int:
+    """13 (d): MultiDeviceStreamPipeline over [device] and
+    MultiHostVideoPipeline over a make_clip stream, where libav builds;
+    else one line each. Returns the kernel's launches."""
+    if libav_missing:
+        for name in ("MultiDeviceStreamPipeline", "MultiHostVideoPipeline"):
+            log(f"(13d) {name}: did not run: libav development files are "
+                f"absent ({libav_missing})")
+        return 0
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+        PixelFormat,
+    )
+    from videoprocessingframework_torch.io.encoder import make_clip
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.ops.fused import FusedPipeline
+    from videoprocessingframework_torch.parallel import (
+        MultiDeviceStreamPipeline,
+        MultiHostVideoPipeline,
+    )
+
+    frames = BATCH * 4
+    clip = str(make_clip(f"{tmpdir}/multi_1080p.h264", SRC_W, SRC_H, frames))
+    post = FusedPipeline(PixelFormat.YUV420, ColorSpace.BT_709,
+                         ColorRange.MPEG, (OUT, OUT), output="normalized",
+                         kernel="cuda")
+    total = 0
+    for name, make in (
+            ("MultiDeviceStreamPipeline", lambda: MultiDeviceStreamPipeline(
+                [clip], post, batch_size=BATCH, devices=[device])),
+            ("MultiHostVideoPipeline", lambda: MultiHostVideoPipeline(
+                [clip], post, mesh=mesh, batch_size_per_host=BATCH))):
+        fc.reset_launches()
+        pipe = make()
+        t0 = time.perf_counter()
+        n = sum(o.shape[0] for o in pipe.batches())
+        torch.cuda.synchronize()
+        fps = n / (time.perf_counter() - t0)
+        pipe.close()
+        launches = fc.LAUNCHES["fused_resize_csc"]
+        total += launches
+        log(f"(13d) {name}: {n} of {frames} decoded frames, {fps:.1f} "
+            f"frames/s (host clock); fused_resize_csc launches: {launches}")
+        require(n == frames and launches >= frames // BATCH, name)
+    return total
+
+
+def _two_rank_worker(rank: int, tmpdir: str, device_name: str) -> None:
+    """One rank of 13 (e): gloo world of 2 on the one card, mesh (2, 1)."""
+    import torch.distributed as dist
+
+    from videoprocessingframework_torch.parallel.mesh import make_mesh
+
+    device = torch.device(device_name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        _start_world("gloo", f"{tmpdir}/store2", rank, 2)
+        mesh = make_mesh(2, ("data", "model"), shape=(2, 1),
+                         device_type=device.type)
+        out["loss_rel"], out["params_rel"] = _mesh_step_vs_single(
+            device, mesh, 8, f"(13e) rank {rank}")
+    except RuntimeError as e:
+        out["error"] = f"{type(e).__name__}: {e}".splitlines()[0][:400]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        with open(f"{tmpdir}/two_rank{rank}.json", "w") as f:
+            json.dump(out, f)
+
+
+def two_ranks_one_card(device, tmpdir) -> dict:
+    """13 (e): two processes on the one card (NCCL refuses two ranks on
+    one device, gloo's all-reduce takes CUDA tensors): the dp step of
+    resnet18_like against the single-device step. A gloo refusal of a
+    CUDA collective the step needs is printed, and (e) is left out."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_two_rank_worker,
+                         args=(r, tmpdir, str(device))) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TWO_RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    require(not alive, f"(13e) two-rank world still running after "
+            f"{TWO_RANK_TIMEOUT_S} s")
+    res = []
+    for r in range(2):
+        with open(f"{tmpdir}/two_rank{r}.json") as f:
+            res.append(json.load(f))
+    errors = [x["error"] for x in res if "error" in x]
+    if errors:
+        log(f"(13e) left out: gloo refused a CUDA collective the step needs: "
+            f"{errors[0]}")
+        require(all(GLOO_REFUSAL.search(e) for e in errors),
+                f"(13e) failed: {errors}")
+        return {"error": errors[0]}
+    require(all(p.exitcode == 0 for p in procs), "(13e) rank exit codes")
+    log(f"(13e) two ranks on one card (gloo, mesh (2, 1)): both ranks within "
+        f"the bars of the single-device step")
+    return res[0]
+
+
+def parallel_path(device, libav_missing: str, tmpdir: str, kernel_ms: float,
+                  plain: dict) -> dict:
+    """Phase 13: a world of one (NCCL on the card), mesh (1, 1): (a)-(d) on
+    it, then (e) two gloo ranks on the one card."""
+    import torch.distributed as dist
+
+    from videoprocessingframework_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    _start_world(backend, f"{tmpdir}/store", 0, 1)
+    try:
+        mesh = make_mesh(axes=("data", "model"), shape=(1, 1),
+                         device_type=device.type)
+        log(f"phase 13: world of {dist.get_world_size()} ({dist.get_backend()}"
+            f"), mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on {device}")
+        pipes = sharded_pipelines(device, mesh, kernel_ms)
+        make_loader = _train_source(device, libav_missing, tmpdir)
+        train = sharded_trainer(device, mesh, make_loader, plain)
+        multi = multi_device_paths(device, mesh, libav_missing, tmpdir)
+    finally:
+        dist.destroy_process_group()
+    two = two_ranks_one_card(device, tmpdir)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    return {"launches": pipes["launches"] + train["launches"] + multi,
+            "pipes": pipes, "train": train, "two_ranks": two}
+
+
 # ---- main ----------------------------------------------------------------------
 
 
@@ -2496,6 +2876,9 @@ def main() -> int:
         xcode = transcode_path(device, rates, missing, tmp)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
         mjpeg = mjpeg_path(device, rates, missing, tmp)
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        par = parallel_path(device, missing, tmp, times["normalized"]["ms"],
+                            train["plain"])
 
     t = times["normalized"]
     c = conv["times"]["nv12"]
@@ -2507,7 +2890,7 @@ def main() -> int:
         "launches": run["launches"] + served["image"]["launches"]
         + served["clip"]["launches"] + train["plain"]["launches"]
         + xcode["transcode"]["launches"] + xcode["libav"]["launches"]
-        + mjpeg["launches"],
+        + mjpeg["launches"] + par["launches"],
         "max_abs_err": run["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -2529,7 +2912,7 @@ def main() -> int:
         "bound_by": c["bound_by"],
         "library_ms": None,
     }]}
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s on {dev_info['smi']}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_info["kind"],

@@ -18,15 +18,19 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 tree = ast.parse(pathlib.Path("chip_smoke.py").read_text())
+smoke = set()
 for node in ast.walk(tree):
     if isinstance(node, ast.Import):
         for a in node.names:
             importlib.import_module(a.name)
+            smoke.add(a.name)
     elif isinstance(node, ast.ImportFrom) and node.level == 0:
         importlib.import_module(node.module)
+        smoke.add(node.module)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
                                     "videoprocessingframework_tpu"))
+print(" ".join(sorted(smoke)))
 print(" ".join(names))
 print(len(names))
 print("BAD", bad)
@@ -39,11 +43,18 @@ def test_port_imports_no_jax():
         text=True, timeout=300,
     )
     assert r.returncode == 0, r.stderr
-    names, n, bad = r.stdout.strip().splitlines()[-3:]
-    assert int(n) >= 59  # every module of the port was imported
+    smoke, names, n, bad = r.stdout.strip().splitlines()[-4:]
+    assert int(n) >= 62  # every module of the port was imported
     for mod in ("compat", "parallel.streams", "io.transcode", "io.muxer",
-                "io.encoder", "io.jpeg", "ops.jpeg", "data.mjpeg"):
+                "io.encoder", "io.jpeg", "ops.jpeg", "data.mjpeg",
+                "parallel.mesh", "parallel.multidevice",
+                "parallel.multihost"):
         assert f"videoprocessingframework_torch.{mod}" in names.split()
+    # chip_smoke.py's phase 13 (the mesh, the sharded and multi-host
+    # pipelines) is among what was imported
+    for mod in ("parallel.mesh", "parallel.multidevice",
+                "parallel.multihost"):
+        assert f"videoprocessingframework_torch.{mod}" in smoke.split()
     assert bad == "BAD []"
 
 

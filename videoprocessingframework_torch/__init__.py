@@ -60,3 +60,13 @@ from .data.mjpeg import MjpegClipLoader  # noqa: F401
 from .ops.convert import SurfaceConverter  # noqa: F401
 from .ops.remap import SurfaceRemaper  # noqa: F401
 from .ops.resize import SurfaceResizer  # noqa: F401
+
+
+def __getattr__(name):
+    """``make_mesh`` on first use: ``torch.distributed.tensor`` takes
+    a second or more to import, which single-device users need not pay."""
+    if name == "make_mesh":
+        from .parallel.mesh import make_mesh
+
+        return make_mesh
+    raise AttributeError(name)

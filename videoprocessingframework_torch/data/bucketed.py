@@ -28,7 +28,10 @@ class BucketedClipLoader:
     and ``output="packed"`` is refused (both keep the merged stream one
     shape). ``labels`` align with ``sources``. ``loader_cls``: the loader
     of each bucket, ``VideoClipLoader`` when None, or ``MjpegClipLoader``
-    for MJPEG corpora (the same constructor contract).
+    for MJPEG corpora (the same constructor contract). ``sharding=``
+    passes to every bucket's loader: each bucket yields the same number
+    of batches on every rank and the schedule is the same, so the ranks
+    stay in lockstep.
     """
 
     def __init__(self, sources: Sequence[str], out_size: tuple,
@@ -91,10 +94,9 @@ class BucketedClipLoader:
         # batch can be ragged, so clamp to its shard-local clip count
         consumed = np.bincount(sched[:skip], minlength=len(self.loaders))
         for i, ld in enumerate(self.loaders):
-            n = len(ld.sampler)
-            mine = (n - ld.shard_index + ld.shard_count - 1) // ld.shard_count
             ld.load_state_dict({"epoch": e, "clips": min(
-                int(consumed[i]) * ld.batch_size, mine)})
+                int(consumed[i]) * ld.batch_size,
+                ld._shard_clips(len(ld.sampler)))})
         self._pos = [e, skip]
         iters = [iter(ld.epoch()) for ld in self.loaders]
         for b in sched[skip:]:

@@ -307,8 +307,23 @@ class _ClipLoaderBase:
 
     def _init_common(self, *, clip_len, frame_stride, batch_size, shuffle,
                      seed, hop, drop_last, workers, prefetch, device,
-                     shard_index, shard_count, labels,
+                     shard_index, shard_count, labels, sharding=None,
                      sampler_starts=None) -> None:
+        self.sharding = sharding
+        if sharding is not None:
+            # one rank a device: this rank's loader is the shard at its
+            # place on the batch axis, on its own device
+            mine = (sharding.batch_index, sharding.batch_ranks)
+            if (shard_index, shard_count) == (0, 1):
+                shard_index, shard_count = mine
+            elif (shard_index, shard_count) != mine:
+                raise ValueError(
+                    f"shard_index/shard_count ({shard_index}, {shard_count}) "
+                    f"disagree with the sharding's {mine}")
+            if device is None:
+                from ..parallel.mesh import mesh_device
+
+                device = mesh_device(sharding.mesh)
         if not (0 <= shard_index < shard_count):
             raise ValueError("need 0 <= shard_index < shard_count")
         self.sampler = ClipSampler(
@@ -418,10 +433,17 @@ class _ClipLoaderBase:
                              decoded_total=kept + replayed)
         return out
 
+    def _shard_clips(self, n: int) -> int:
+        """Clips of an ``n``-clip epoch that this shard takes: every
+        ``shard_count``-th; with ``sharding`` every rank takes the same
+        number (the ranks stay in lockstep)."""
+        if self.sharding is not None:
+            return n // self.shard_count
+        return (n - self.shard_index + self.shard_count - 1) // self.shard_count
+
     def __len__(self) -> int:
         """Batches per epoch for THIS shard."""
-        n = len(self.sampler)
-        mine = (n - self.shard_index + self.shard_count - 1) // self.shard_count
+        mine = self._shard_clips(len(self.sampler))
         if self.drop_last:
             return mine // self.batch_size
         return (mine + self.batch_size - 1) // self.batch_size
@@ -482,7 +504,8 @@ class _ClipLoaderBase:
         e = self._epoch if epoch is None else int(epoch)
         samples = self.sampler.epoch(e)
         if self.shard_count > 1:
-            samples = samples[self.shard_index::self.shard_count]
+            samples = samples[self.shard_index::self.shard_count][
+                :self._shard_clips(len(samples))]
         skip = min(self._resume_clips, len(samples))
         self._resume_clips = 0
         self._pos = [e, skip]
@@ -504,6 +527,8 @@ class _ClipLoaderBase:
                             for o in out)
             else:
                 out = out.reshape((b, T) + tuple(out.shape[1:]))
+            if self.sharding is not None:
+                out, labels = self._globalize(out, labels)
             self._pos[1] += b
             return (out, labels) if labels is not None else out
 
@@ -513,6 +538,13 @@ class _ClipLoaderBase:
                 if count < self.batch_size and self.drop_last:
                     self._free.append(slot)
                     continue
+                if count < self.batch_size and self.sharding is not None:
+                    self._free.append(slot)
+                    raise ValueError(
+                        f"clip batch of {count} clips does not fill this "
+                        f"rank's {self.batch_size}: every rank's batch of a "
+                        "sharded loader must be full (use drop_last=True to "
+                        "keep batches full)")
                 with self.timer.measure("dispatch"):
                     inflight.append(self._dispatch(slot, count, files))
                 if len(inflight) >= self.prefetch:
@@ -525,6 +557,19 @@ class _ClipLoaderBase:
             for disp in inflight:
                 if disp[4] is not None:
                     disp[4].synchronize()
+
+    def _globalize(self, out, labels):
+        """This rank's batch (and labels) as ``DTensor``s sharded on dim 0
+        over the batch axis: the global batch is every rank's batch in
+        rank order."""
+        from ..parallel.mesh import place_local, wrap_local
+
+        sh = self.sharding
+        out = (tuple(wrap_local(o, sh) for o in out)
+               if isinstance(out, tuple) else wrap_local(out, sh))
+        if labels is not None:
+            labels = place_local(np.asarray(labels), sh)
+        return out, labels
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
@@ -561,6 +606,17 @@ class VideoClipLoader(_ClipLoaderBase):
 
     ``shard_index``/``shard_count``: each process takes every
     ``shard_count``-th sample of the same epoch permutation.
+
+    ``sharding``: a :class:`~..parallel.mesh.Sharding` (e.g.
+    ``batch_sharding(mesh)``). Under one rank a device, each rank's loader
+    is the shard at the rank's place on the batch axis (``shard_index``
+    and ``shard_count`` from the mesh), on the rank's device; each batch
+    (and its labels) comes out, after the pipeline, as a ``DTensor``
+    sharded on dim 0: the global batch is the ranks' batches in rank
+    order. Every rank takes the same number of clips an epoch, and a
+    batch that is not full raises ``ValueError`` (use ``drop_last=True``).
+    (The JAX package's ``sharding`` splits one process's batch over its
+    local devices instead.)
 
     ``workers``: decode threads; 0 = min(batch, cores), serial on one
     core. The output is identical on every worker count.
@@ -603,6 +659,7 @@ class VideoClipLoader(_ClipLoaderBase):
         labels: Optional[Sequence] = None,
         align_keyframes: bool = False,
         augment=None,
+        sharding=None,
     ):
         if isinstance(sources, VideoCorpus):
             self.corpus = sources
@@ -622,7 +679,7 @@ class VideoClipLoader(_ClipLoaderBase):
             batch_size=batch_size, shuffle=shuffle, seed=seed, hop=hop,
             drop_last=drop_last, workers=workers, prefetch=prefetch,
             device=device, shard_index=shard_index, shard_count=shard_count,
-            labels=labels, sampler_starts=starts)
+            labels=labels, sharding=sharding, sampler_starts=starts)
         self._init_packed_rows()
         self.decode_threads = decode_threads
         self._init_pipeline(
@@ -726,7 +783,8 @@ class HostClipLoader(_ClipLoaderBase):
                  drop_last: bool = False, prefetch: int = 2, device=None,
                  shard_index: int = 0, shard_count: int = 1,
                  kernel: str = "auto", compute: str = "auto",
-                 labels: Optional[Sequence] = None, augment=None):
+                 labels: Optional[Sequence] = None, augment=None,
+                 sharding=None):
         self.corpus = VideoCorpus.from_streams([
             StreamInfo(path=f"seeded:{seed + k}", width=width, height=height,
                        num_frames=frames_per_stream,
@@ -737,7 +795,8 @@ class HostClipLoader(_ClipLoaderBase):
             clip_len=clip_len, frame_stride=frame_stride,
             batch_size=batch_size, shuffle=shuffle, seed=seed, hop=hop,
             drop_last=drop_last, workers=1, prefetch=prefetch, device=device,
-            shard_index=shard_index, shard_count=shard_count, labels=labels)
+            shard_index=shard_index, shard_count=shard_count, labels=labels,
+            sharding=sharding)
         self._init_packed_rows()
         self.frames = np.stack([
             seeded_frames(frames_per_stream, self._rows, width, seed + k)

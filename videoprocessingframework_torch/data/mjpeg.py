@@ -93,7 +93,9 @@ class MjpegClipLoader(_ClipLoaderBase):
     ``"planes"`` for the (y, u, v) batches. ``augment``: an
     :class:`~..ops.augment.AugmentSpec`, per-clip params from the
     (seed, epoch, shard-unique batch index) counter. ``device``: CUDA by
-    default, ``"cpu"`` for the CPU.
+    default, ``"cpu"`` for the CPU. ``sharding``: as
+    :class:`~.loader.VideoClipLoader`'s (each rank's batch a ``DTensor``
+    shard).
     """
 
     def __init__(
@@ -118,6 +120,7 @@ class MjpegClipLoader(_ClipLoaderBase):
         labels: Optional[Sequence] = None,
         lengths: Optional[Sequence[int]] = None,
         augment=None,
+        sharding=None,
     ):
         from ..io.demuxer import FFmpegDemuxer
         from ..io.jpeg import JpegCoefDecoder, JpegStreamError, _snapshot
@@ -158,7 +161,7 @@ class MjpegClipLoader(_ClipLoaderBase):
             batch_size=batch_size, shuffle=shuffle, seed=seed, hop=hop,
             drop_last=drop_last, workers=workers, prefetch=prefetch,
             device=device, shard_index=shard_index, shard_count=shard_count,
-            labels=labels)
+            labels=labels, sharding=sharding)
         self._augmented = augment is not None
         self.pipeline = JpegDevicePipeline(
             snap0, out_size=out_size, output=output, method=method,

@@ -164,6 +164,19 @@ class _RingFeed:
                 self.release()
             pending.clear()
 
+    def acquire_planes(self):
+        """Next batch of a plane-major ring as zero-copy contiguous
+        (y, u, v) views, or None when drained. Call :meth:`release`."""
+        if not self.plane_major:
+            raise RuntimeError("acquire_planes() needs plane_major=True")
+        slot, n = self._acquire_raw()
+        if slot is None:
+            return None
+        return tuple(
+            p.numpy() for p in self._split(torch.from_numpy(slot), n,
+                                           self.batch_size)
+        )
+
     # hooks with no native counterpart by default
     def pause(self, paused: bool = True) -> None:
         pass
@@ -266,19 +279,6 @@ class NativeDecodePool(_RingFeed):
             return None
         return slot[: n * self.frame_bytes].reshape(n, self._rows, self.width)
 
-    def acquire_planes(self):
-        """Next batch of a plane-major pool as zero-copy contiguous
-        (y, u, v) views, or None when drained. Call :meth:`release`."""
-        if not self.plane_major:
-            raise RuntimeError("acquire_planes() needs plane_major=True")
-        slot, n = self._acquire_raw()
-        if slot is None:
-            return None
-        return tuple(
-            p.numpy() for p in self._split(torch.from_numpy(slot), n,
-                                           self.batch_size)
-        )
-
     def acquire_flat(self):
         """Next FULL plane-major batch as ONE zero-copy 1-D view of the
         slot ([Y×cap | U×cap | V×cap]), the (y, u, v) views for a ragged
@@ -294,6 +294,20 @@ class NativeDecodePool(_RingFeed):
             p.numpy() for p in self._split(torch.from_numpy(slot), n,
                                            self.batch_size)
         )
+
+    def flat_postproc_fn(self, postproc: Callable) -> Callable:
+        """``fn(flat)``: ``postproc(y, u, v)`` on ONE flat plane-major
+        batch (the :meth:`acquire_flat` layout) already on the device —
+        the single-transfer feed of MultiDeviceStreamPipeline. The planes
+        are views of ``flat``; nothing is copied."""
+        if not self.plane_major:
+            raise RuntimeError("flat_postproc_fn() needs plane_major=True")
+        cap = self.batch_size
+
+        def fn(flat: torch.Tensor):
+            return postproc(*self._split(flat, cap, cap))
+
+        return fn
 
     def release(self) -> None:
         self._lib.vpf_pool_release_batch(self._h)

@@ -52,6 +52,28 @@ class SameConv2d(nn.Conv2d):
         return F.conv2d(x, self.weight.to(dt), bias, self.stride)
 
 
+class StemConv2d(nn.Conv2d):
+    """Bias-free convolution with symmetric padding, its weight cast to
+    the compute type in the forward pass (the stems)."""
+
+    def __init__(self, cin, cout, k, stride, padding, dtype=torch.bfloat16):
+        super().__init__(cin, cout, k, stride=stride, padding=padding,
+                         bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight.to(self.compute_dtype), None,
+                        self.stride, self.padding)
+
+
+class Float32Linear(nn.Linear):
+    """Flax's ``Dense(dtype=float32)``: float32 whatever the input's and
+    the parameters' type."""
+
+    def forward(self, x):
+        return F.linear(x.float(), self.weight.float(), self.bias.float())
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm with Flax's numerics, returning the compute type.
 
@@ -123,8 +145,7 @@ class ResNet(nn.Module):
                  width: int = 64, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.stem_conv = nn.Conv2d(3, width, 7, stride=2, padding=3,
-                                   bias=False)
+        self.stem_conv = StemConv2d(3, width, 7, 2, 3, dtype)
         self.stem_bn = BatchNorm(width, dtype)
         cin = width
         for i, n_blocks in enumerate(stage_sizes):
@@ -138,21 +159,16 @@ class ResNet(nn.Module):
                 cin = filters * 4
         self.blocks = [n for n, _ in self.named_children()
                        if n.startswith("stage")]
-        self.classifier = nn.Linear(cin, num_classes)
+        self.classifier = Float32Linear(cin, num_classes)
 
     def forward(self, x):
         """(N, H, W, 3) → (N, num_classes) float32 logits."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.conv2d(x, self.stem_conv.weight.to(self.dtype), None, 2, 3)
-        x = F.relu(self.stem_bn(x))
+        x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for name in self.blocks:
             x = getattr(self, name)(x)
-        x = x.mean(dim=(2, 3))
-        # Flax's Dense(dtype=float32): float32 whatever the parameters'
-        # type
-        c = self.classifier
-        return F.linear(x.float(), c.weight.float(), c.bias.float())
+        return self.classifier(x.mean(dim=(2, 3)))
 
 
 def resnet50(num_classes: int = 1000, dtype=torch.bfloat16) -> ResNet:

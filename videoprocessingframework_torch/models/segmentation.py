@@ -21,7 +21,7 @@ from torch import nn
 
 from ..ops.resize import resize_matrix
 from ..utils.device import check_f32_matmul
-from .resnet import BatchNorm, BottleneckBlock
+from .resnet import BatchNorm, BottleneckBlock, StemConv2d
 
 
 @lru_cache(maxsize=16)
@@ -36,7 +36,7 @@ class FCNResNet(nn.Module):
                  dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.stem = nn.Conv2d(3, width, 7, stride=2, padding=3, bias=False)
+        self.stem = StemConv2d(3, width, 7, 2, 3, dtype)
         self.stem_bn = BatchNorm(width, dtype)
         cin = width
         self.blocks = []
@@ -56,8 +56,7 @@ class FCNResNet(nn.Module):
         n, h, w, _ = x.shape
         dt = self.dtype
         x = x.to(dt).permute(0, 3, 1, 2)
-        x = F.conv2d(x, self.stem.weight.to(dt), None, 2, 3)
-        x = F.relu(self.stem_bn(x))
+        x = F.relu(self.stem_bn(self.stem(x)))
         for name in self.blocks:
             x = getattr(self, name)(x)
         logits = self.classifier(x.float())  # (N, C, h', w')

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import ResNet
+from .resnet import Float32Linear, ResNet
 from .vit import LayerNorm, MultiHeadAttention
 
 __all__ = ["VideoClassifier", "video_resnet50", "video_resnet18_like"]
@@ -51,7 +51,7 @@ class VideoClassifier(nn.Module):
             self.cls_query = nn.Parameter(0.02 * torch.randn(1, 1, feat))
             self.temporal_attn = MultiHeadAttention(feat, heads, dtype)
             self.temporal_ln = LayerNorm(feat, out_dtype=dtype)
-        self.classifier = nn.Linear(feat, num_classes)
+        self.classifier = Float32Linear(feat, num_classes)
 
     def forward(self, clips):
         """(B, T, H, W, 3) → (B, num_classes) float32 logits."""
@@ -76,7 +76,7 @@ class VideoClassifier(nn.Module):
             q = self.cls_query.to(dt).expand(b, -1, -1)
             z = self.temporal_attn(q, h)[:, 0] + q[:, 0]
             z = self.temporal_ln(z)
-        return self.classifier(F.relu(z).float())
+        return self.classifier(F.relu(z))
 
 
 def video_resnet50(num_classes: int = 400, temporal: str = "attention",

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import SameConv2d
+from .resnet import Float32Linear, SameConv2d
 
 
 class Dense(nn.Linear):
@@ -47,16 +47,17 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """Flax ``nn.LayerNorm``: ε = 1e-6, statistics in float32, the result
-    in ``out_dtype``."""
+    """Flax ``nn.LayerNorm(dtype=float32)``: ε = 1e-6, input, scale and
+    bias in float32, the result in ``out_dtype``."""
 
     def __init__(self, dim: int, out_dtype=torch.float32):
         super().__init__(dim, eps=1e-6)
         self.out_dtype = out_dtype
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(self.out_dtype)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(self.out_dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -129,7 +130,7 @@ class ViT(nn.Module):
         for i in range(depth):
             self.add_module(f"block{i}", ViTBlock(dim, heads, dtype=dtype))
         self.LayerNorm_0 = LayerNorm(dim)
-        self.classifier = nn.Linear(dim, num_classes) if head else None
+        self.classifier = Float32Linear(dim, num_classes) if head else None
 
     def forward(self, x):
         if tuple(x.shape[1:3]) != self.image_size:
@@ -181,7 +182,7 @@ class VideoViT(nn.Module):
         for i in range(temporal_depth):
             self.add_module(f"tblock{i}", ViTBlock(dim, heads, dtype=dtype))
         self.LayerNorm_0 = LayerNorm(dim)
-        self.classifier = nn.Linear(dim, num_classes)
+        self.classifier = Float32Linear(dim, num_classes)
 
     def forward(self, x):
         b, t = x.shape[:2]

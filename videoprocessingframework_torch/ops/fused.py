@@ -25,7 +25,12 @@ import torch
 from torch import nn
 
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
-from ..utils.device import as_tensor, check_f32_matmul, resolve_device
+from ..utils.device import (
+    as_tensor,
+    check_f32_matmul,
+    is_dtensor,
+    resolve_device,
+)
 from . import colorspace as cs
 from .colorspace import f32
 from .convert import _deinterleave_uv, _round_u8, _upsample2
@@ -467,10 +472,17 @@ def encode_feed(
     compute: 'auto' and 'highest' are full float32 (TF32 refused on
     CUDA); 'split_bf16' keeps the JAX package's hi/lo bf16 numerics.
     Fidelity: ≤1 u8 ULP vs the float64 golden (resize matrices +
-    golden.rgb_to_yuv420).
+    golden.rgb_to_yuv420). A ``DTensor`` sharded on dim 0 runs on each
+    rank's shard and gives ``DTensor`` planes with its placements.
     """
     if out_h % 2 or out_w % 2:
         raise ValueError("YUV420 target size must be even")
+    if is_dtensor(rgb):
+        from ..parallel.mesh import map_shards
+
+        return map_shards(lambda x: encode_feed(
+            x, out_h=out_h, out_w=out_w, space=space, rng=rng,
+            method=method, swap=swap, compute=compute, device=device), rgb)
     planes = _encode_feed_resized(as_tensor(rgb, device), out_h, out_w,
                                   method, swap, compute, "encode_feed")
     y, cb, cr = _ycbcr_planes(planes, space, rng, (0, 1, 2))
@@ -497,7 +509,14 @@ def encode_feed_gray(
     """Luma-only :func:`encode_feed`: RGB → resized u8 Y plane (grayscale
     encoder targets; no 4:2:0 fold, so odd target sizes are fine). The
     defaults differ from :func:`encode_feed` on purpose: gray targets
-    follow the JPEG path's convention (full-range BT.601)."""
+    follow the JPEG path's convention (full-range BT.601). A ``DTensor``
+    sharded on dim 0 runs on each rank's shard, as in encode_feed."""
+    if is_dtensor(rgb):
+        from ..parallel.mesh import map_shards
+
+        return map_shards(lambda x: encode_feed_gray(
+            x, out_h=out_h, out_w=out_w, space=space, rng=rng,
+            method=method, swap=swap, compute=compute, device=device), rgb)
     planes = _encode_feed_resized(as_tensor(rgb, device), out_h, out_w,
                                   method, swap, compute, "encode_feed_gray")
     (y,) = _ycbcr_planes(planes, space, rng, (0,))

@@ -45,12 +45,19 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .utils.device import resolve_device
+from .utils.device import is_dtensor, resolve_device
 
 __all__ = ["InferenceServer", "ServingQueueFull"]
 
 #: queue entry asking the collector to run the bucket ladder once
 _WARMUP = object()
+
+
+def _whole(out):
+    """A sharded ``infer_fn`` output gathered into whole tensors."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_whole(o) for o in out)
+    return out.full_tensor() if is_dtensor(out) else out
 
 
 def _fail(reqs, e: BaseException) -> None:
@@ -132,7 +139,13 @@ class InferenceServer:
     ``device``: where ``infer_fn`` computes (CUDA by default; ``"cpu"``
     runs without a card, with no pinning and no events).
     ``buckets``: ascending batch sizes to pad to; default powers of two
-    up to ``max_batch``.
+    up to ``max_batch``. An ``infer_fn`` with a ``batch_multiple``
+    attribute (``make_infer_step(model, mesh)``: the mesh's data axis)
+    takes buckets that are multiples of it: the default ladder is
+    ``batch_multiple`` × powers of two, and other buckets raise
+    ``ValueError``. Its ``DTensor`` output is gathered whole for the
+    requests (the server is one rank's: with a mesh it serves a world
+    of one).
     ``max_wait_ms``: how long the collector holds the first request of a
     batch hoping for co-arrivals (0 = dispatch at once).
     ``max_queue``: bound on pending requests (``ServingQueueFull`` past
@@ -154,12 +167,17 @@ class InferenceServer:
         self.item_shape = tuple(item_shape)
         self.dtype = np.dtype(dtype)
         self.device = resolve_device(device)
+        multiple = int(getattr(infer_fn, "batch_multiple", 1))
         if buckets is None:
-            buckets, b = [], 1
+            buckets, b = [], multiple
             while b < max_batch:
                 buckets.append(b)
                 b *= 2
-            buckets.append(max_batch)
+            buckets.append(-(-max_batch // multiple) * multiple)
+        elif any(int(b) % multiple for b in buckets):
+            raise ValueError(
+                f"buckets {list(buckets)} must be multiples of infer_fn's "
+                f"batch_multiple {multiple} (the mesh's data axis)")
         self.buckets = sorted(set(int(b) for b in buckets))
         self.max_batch = self.buckets[-1]
         self.max_wait_s = max(0.0, float(max_wait_ms)) / 1e3
@@ -360,7 +378,7 @@ class InferenceServer:
             for i, (a, _f, _t) in enumerate(reqs):
                 buf[i].copy_(torch.from_numpy(a))
             try:
-                out = self.infer_fn(buf)
+                out = _whole(self.infer_fn(buf))
                 ready = self._dispatched()
             except Exception as e:
                 _fail(reqs, e)

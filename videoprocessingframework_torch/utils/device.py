@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Sequence
 
 import numpy as np
@@ -18,6 +19,13 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """``x`` is a ``torch.distributed`` ``DTensor`` (checked without
+    importing ``torch.distributed.tensor``: without it, nothing is)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def as_tensor(x, device=None) -> torch.Tensor:
