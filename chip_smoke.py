@@ -126,9 +126,36 @@ Phases, each of which raises on failure:
    vs the single-device step — or the error, on a line of its own, where
    gloo refuses a CUDA collective the step needs.
 
+14. The samples (videoprocessingframework_torch/samples), each through
+   its own ``run`` on seeded frames, since the card's machine has no libav
+   to decode tests/assets/test.mp4 with: (a) sample_resnet.run at full
+   width, 8 batches of 32 seeded 1080p NV12 frames → FusedPipeline
+   (normalized, 224², the NV12 instantiation of fused_resize_csc, whose
+   first path this is) → ResNet-50 bf16: frames/s (host clock), ResNet-50
+   ms a batch (CUDA events), the kernel's launches over this run alone
+   (≥ batches), and one batch in float32 on CUDA (TF32 off) vs run on the
+   CPU (top-1 equal, logits within SAMPLE_LOGIT_TOL); (b) sample_segmentation
+   (8 frames, one a call, NV12 → FCN), sample_serving (64 packed 1080p
+   YUV420 requests from 4 clients → ResNet18-like), sample_aot_compile
+   (torch.export, save and load of ResNet-50 on the card; the reloaded
+   program against eager; a wrong batch refused), the device half of
+   sample_device_transcode (to 720p; vs the CPU ≤1 code) and of
+   sample_torch (Surface ↔ tensor, exact), sample_remap (vs the CPU ≤1
+   code), sample_scenecut (the cut of phase 9's shots), sample_stabilize
+   (jitter reduced) and sample_flow_interp (a known pan recovered, the
+   midpoint beating frame repeat); (c) sample_train_video.run on phase
+   10's seeded source on a mesh (1, 1), 8 steps with a checkpoint that a
+   fresh model, optimizer and loader resume from with equal weights;
+   (d) every sample's main() on tests/assets/test.mp4 where libav builds,
+   else one line a sample naming the missing library. Prints the NV12
+   instantiation's launches (14a and the segmentation run) on a line of
+   its own. Phase 14 runs at torch's default cuDNN setting (no benchmark
+   search at each new shape), as a sample does; 14c times its first step
+   apart.
+
 The line before the last is the per-kernel JSON record (launches of
-fused_resize_csc counted over phases 5, 8, 10 (a), 11a, 11c, 12 and 13,
-of csc_rgb_planar over phases 6 and 11b); the last line is
+fused_resize_csc counted over phases 5, 8, 10 (a), 11a, 11c, 12, 13 and
+14 (a)-(c), of csc_rgb_planar over phases 6 and 11b); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -136,6 +163,7 @@ from __future__ import annotations
 
 import json
 import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -2841,6 +2869,403 @@ def parallel_path(device, libav_missing: str, tmpdir: str, kernel_ms: float,
             "pipes": pipes, "train": train, "two_ranks": two}
 
 
+# ---- phase 14 ------------------------------------------------------------------
+
+
+#: sample_resnet at full width: batches of BATCH seeded 1080p NV12 frames
+SAMPLE_BATCHES = 8
+#: sample_resnet on CUDA vs CPU, one batch in float32 (TF32 off): logits as
+#: max |diff| / max |logit| (the kernel's normalized output is within 1e-4
+#: of the plain version's, phase 3)
+SAMPLE_LOGIT_TOL = 1e-3
+#: sample_aot_compile: the reloaded program's confidences vs eager
+AOT_CONF_TOL = 1e-3
+#: the samples' main() on tests/assets/test.mp4 where libav builds: each
+#: sample with the arguments of its test in tests/test_torch_samples_*.py
+SAMPLE_MAINS = [
+    ("sample_decode", ["{mp4}", "{tmp}/o.nv12"]),
+    ("sample_decode", ["{mp4}", "{tmp}/o.nv12", "--mode", "standalone"]),
+    ("sample_decode", ["{mp4}", "{tmp}/o.nv12", "--mode", "seek",
+                       "--seek-frame", "50"]),
+    ("sample_decode_sw", ["{mp4}", "{tmp}/o.yuv"]),
+    ("sample_demux_decode", ["{mp4}"]),
+    ("sample_decode_rtsp", ["{mp4}", "--seconds", "30"]),
+    ("sample_encode", ["{tmp}/o.nv12", "{tmp}/e.h264", "848", "464",
+                       "--preset", "P1"]),
+    ("sample_encode_multi_thread", ["--threads", "2", "--frames", "10"]),
+    ("sample_transcode", ["{mp4}", "{tmp}/t.h264", "--scale", "424x232"]),
+    ("sample_dlpack", ["{mp4}"]),
+    ("sample_torch", ["{mp4}", "--frames", "3"]),
+    ("sample_remap", ["{mp4}", "--frames", "2"]),
+    ("sample_display", ["{mp4}", "--frames", "3"]),
+    ("sample_resnet", ["{mp4}", "--frames", "4", "--batch", "2"]),
+    ("sample_segmentation", ["{mp4}", "--frames", "2"]),
+    ("sample_serving", ["{mp4}", "--clients", "2", "--frames", "8",
+                        "--max-batch", "4"]),
+    ("sample_batch_inference", ["{mp4}", "--streams", "1", "--batch", "4"]),
+    ("sample_decode_multi_thread", ["{mp4}", "--streams", "2"]),
+    ("sample_aot_compile", ["{mp4}", "--batch", "4", "--engine",
+                            "{tmp}/engine.pt2"]),
+    ("sample_device_transcode", ["{mp4}", "{tmp}/d.h264", "--size",
+                                 "424x232", "--frames", "24"]),
+    ("sample_dataloader", ["{mp4}", "--clip-len", "4", "--batch", "2",
+                           "--size", "64", "--workers", "1"]),
+    ("sample_dataloader", ["--mjpeg", "--clip-len", "2", "--batch", "2",
+                           "--size", "48", "--workers", "1"]),
+    ("sample_train_video", ["{mp4}", "--clip-len", "2", "--batch", "2",
+                            "--size", "32", "--steps", "2"]),
+    ("sample_scenecut", ["{mp4}", "--frames", "32", "--batch", "16"]),
+    ("sample_stabilize", ["{mp4}", "--frames", "8", "--jitter", "2"]),
+    ("sample_flow_interp", ["{mp4}", "--triplets", "1", "--mv"]),
+    ("sample_measure_video_quality", ["{mp4}", "--frames", "16"]),
+    ("sample_mjpeg_transcode", ["synth", "{tmp}/t.mjpeg", "--size",
+                                "160x120"]),
+]
+
+
+def _nv12_batches(n, seed):
+    """``n`` seeded 1080p NV12 host batches of BATCH frames (two distinct
+    batches in turn; a coarse pattern under the noise, see phase 8)."""
+    from videoprocessingframework_torch.data.loader import seeded_frames
+
+    two = [seeded_frames(BATCH, SRC_H * 3 // 2, SRC_W, seed=seed + k)
+           for k in range(2)]
+    # contiguous planes, as the sample's decoder gives them
+    two = [(np.ascontiguousarray(f[:, :SRC_H]),
+            np.ascontiguousarray(f[:, SRC_H:])) for f in two]
+    return [two[k % 2] for k in range(n)]
+
+
+def _launched(fn):
+    """(fn's result, fused_resize_csc launches during it): the counts
+    set to 0 just before ``fn`` and read just after."""
+    from videoprocessingframework_torch.ops import fused_cuda as fc
+
+    fc.reset_launches()
+    out = fn()
+    return out, fc.LAUNCHES["fused_resize_csc"]
+
+
+def sample_resnet_path(device) -> dict:
+    """14 (a): sample_resnet.run at full width, seeded 1080p NV12 ×BATCH →
+    the NV12 instantiation → ResNet-50 (bf16, the sample's dtype)."""
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+    )
+    from videoprocessingframework_torch.models import resnet50
+    from videoprocessingframework_torch.samples import sample_resnet
+
+    space, rng = ColorSpace.BT_709, ColorRange.MPEG
+    batches = _nv12_batches(SAMPLE_BATCHES, seed=61)
+    model, ref = _seeded_model(lambda dt: resnet50(dtype=dt), device, 3)
+    kw = dict(space=space, rng=rng, device=device)
+    sample_resnet.run(batches[:1], model, **kw)  # warm-up: cuDNN plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, launches = _launched(
+        lambda: sample_resnet.run(batches, model, **kw))
+    torch.cuda.synchronize()
+    fps = BATCH * SAMPLE_BATCHES / (time.perf_counter() - t0)
+    require(logits.shape == (BATCH * SAMPLE_BATCHES, 1000)
+            and bool(torch.isfinite(logits).all()), "sample_resnet logits")
+    require(launches >= SAMPLE_BATCHES,
+            f"sample_resnet: {launches} NV12 kernel launches")
+    x = sample_resnet.preprocess(space, rng, device)(*batches[0])
+    with torch.no_grad():
+        model_ms = cuda_ms(lambda: model(x), warmup=2, reps=3)
+    log(f"(14a) sample_resnet.run 1080p NV12 x{BATCH} -> fused_resize_csc "
+        f"(NV12) -> ResNet-50 bf16: {fps:.1f} frames/s over "
+        f"{SAMPLE_BATCHES} batches (host clock), ResNet-50 {model_ms:.3f} "
+        f"ms a batch (CUDA events); NV12 kernel launches in this run: "
+        f"{launches}")
+
+    # CUDA vs CPU on one batch, float32 weights (TF32 off on both ops)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = sample_resnet.run(batches[:1], ref, **kw).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    cpu = torch.device("cpu")
+    want = sample_resnet.run(batches[:1], ref.to(cpu), space=space, rng=rng,
+                             device=cpu)
+    rel = _rel(got, want)
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    log(f"(14a) sample_resnet.run one batch float32, CUDA vs CPU: top-1 "
+        f"equal on all {BATCH}: {same}; max abs diff / max |logit| "
+        f"{rel:.3g} (tol {SAMPLE_LOGIT_TOL})")
+    require(same and rel <= SAMPLE_LOGIT_TOL, "sample_resnet CUDA vs CPU")
+    return {"launches": launches, "fps": fps, "model_ms": model_ms}
+
+
+def sample_device_paths(device, tmpdir: str) -> dict:
+    """14 (b): the other samples' device stages through their ``run`` on
+    seeded frames; returns fused_resize_csc's launches (NV12 and planar)."""
+    from videoprocessingframework_torch import compat as nvc
+    from videoprocessingframework_torch.core.enums import (
+        ColorRange,
+        ColorSpace,
+        PixelFormat,
+    )
+    from videoprocessingframework_torch.core.surface import Surface
+    from videoprocessingframework_torch.data.loader import seeded_frames
+    from videoprocessingframework_torch.models import (
+        fcn_resnet,
+        resnet18_like,
+        resnet50,
+    )
+    from videoprocessingframework_torch.ops.fused import FusedPipeline
+    from videoprocessingframework_torch.samples import (
+        sample_aot_compile,
+        sample_device_transcode,
+        sample_flow_interp,
+        sample_remap,
+        sample_scenecut,
+        sample_segmentation,
+        sample_serving,
+        sample_stabilize,
+        sample_torch,
+    )
+
+    space, rng = ColorSpace.BT_709, ColorRange.MPEG
+    cpu = torch.device("cpu")
+    rows = SRC_H * 3 // 2
+    rec = {"nv12": 0, "planar": 0}
+
+    # sample_segmentation: one 1080p NV12 frame a call, as the sample has it
+    fcn, _ = _seeded_model(lambda dt: fcn_resnet(dtype=dt), device, 4)
+    one = [(f[None, :SRC_H], f[None, SRC_H:])
+           for f in seeded_frames(8, rows, SRC_W, seed=71)]
+    masks, n = _launched(lambda: sample_segmentation.run(
+        one, fcn, space=space, rng=rng, device=device))
+    rec["nv12"] += n
+    m = torch.cat(masks)
+    require(m.shape == (8, OUT, OUT) and int(m.min()) >= 0
+            and int(m.max()) < 21 and n >= 8, "sample_segmentation")
+    log(f"(14b) sample_segmentation: 8 seeded 1080p NV12 frames -> "
+        f"fused_resize_csc (NV12) -> FCN bf16: masks {tuple(m.shape)}, "
+        f"{int(m.unique().numel())} classes seen; NV12 launches {n}")
+
+    # sample_serving: packed 1080p YUV420 → the planar kernel → ResNet18
+    r18 = _seeded_model(lambda dt: resnet18_like(10, dtype=dt), device, 5)[0]
+    packed = list(seeded_frames(64, rows, SRC_W, seed=72))
+    (out, snap, dt), n = _launched(lambda: sample_serving.run(
+        packed, r18, space=space, rng=rng, device=device, clients=4,
+        max_batch=8, wait_ms=5.0))
+    rec["planar"] += n
+    require(all(o is not None and o.shape == (10,)
+                and bool(torch.isfinite(o).all()) for o in out)
+            and n >= snap["batches"], "sample_serving")
+    log(f"(14b) sample_serving: {snap['requests']} requests from 4 clients "
+        f"in {snap['batches']} batches, {snap['requests'] / dt:.1f} req/s, "
+        f"p50 {snap['latency_ms_p50']:.2f} ms p99 "
+        f"{snap['latency_ms_p99']:.2f} ms; planar launches {n} (warm-up "
+        f"included)")
+
+    # sample_aot_compile: export, save, load on the card
+    r50 = _seeded_model(lambda dt: resnet50(dtype=dt), device, 6)[0]
+    t0 = time.perf_counter()
+    engine = sample_aot_compile.build_engine(r50, 8, pathlib.Path(
+        f"{tmpdir}/resnet50.pt2"), device)
+    export_s = time.perf_counter() - t0
+    norm = FusedPipeline(PixelFormat.YUV420, space, rng, (OUT, OUT),
+                         output="normalized", device=device, kernel="cuda")
+    yuv = torch.from_numpy(seeded_frames(8, rows, SRC_W, seed=73))
+    x, n = _launched(lambda: norm(yuv.to(device)))
+    rec["planar"] += n
+    (served, top), _ = _launched(lambda: sample_aot_compile.run(
+        [x, x[:3]], engine, 8))
+    with torch.no_grad():
+        cls, conf = sample_aot_compile.Serve(r50)(x)
+        got_cls, got_conf = engine(x)
+    err = (got_conf - conf).abs().max().item()
+    try:
+        engine(x[:4])
+        refused = False
+    except Exception:  # the program's input check
+        refused = True
+    require(served == 8 and bool((got_cls == cls).all())
+            and err <= AOT_CONF_TOL and refused, "sample_aot_compile")
+    log(f"(14b) sample_aot_compile: torch.export + save + load of "
+        f"ResNet-50 bf16 for (8, 224, 224, 3) in {export_s:.1f} s; the "
+        f"reloaded program vs eager: top-1 equal, confidence max abs diff "
+        f"{err:.3g} (tol {AOT_CONF_TOL}); a batch of 4 refused: {refused}")
+
+    # sample_device_transcode's device half: 1:1 RGB → band → encode_feed
+    to_rgb = sample_device_transcode.to_rgb(SRC_W, SRC_H, space, rng, device)
+    xc = [torch.from_numpy(seeded_frames(4, rows, SRC_W, seed=74 + k))
+          for k in range(4)]
+    fed, n = _launched(lambda: list(sample_device_transcode.run(
+        (to_rgb(b.to(device)) for b in xc), out_w=1280, out_h=720,
+        space=space, rng=rng)))
+    rec["planar"] += n
+    want = next(sample_device_transcode.run(
+        [sample_device_transcode.to_rgb(SRC_W, SRC_H, space, rng, cpu)(
+            xc[0])], out_w=1280, out_h=720, space=space, rng=rng))
+    diff = _maxdiff(fed[0], want)
+    require(len(fed) == 4 and fed[0].shape == (4, 1080, 1280) and n >= 4
+            and diff <= 1, "sample_device_transcode")
+    log(f"(14b) sample_device_transcode device half: 4 batches of 4 seeded "
+        f"1080p YUV420 -> fused_resize_csc rgb_f32 1:1 -> band -> "
+        f"encode_feed 720p -> planes_to_host_packed {fed[0].shape}; vs the "
+        f"CPU: max {diff} code(s) (tol 1); planar launches {n}")
+
+    # sample_torch's device half: the luma dimmed through torch
+    nv = seeded_frames(4, rows, SRC_W, seed=75)
+    surfs = [Surface.from_host_frame(f, PixelFormat.NV12, SRC_W,
+                                     SRC_H).to_device(device) for f in nv]
+    dimmed = list(sample_torch.run(surfs))
+    ok = all(d.is_on_device and torch.equal(
+        d.planes[0], (s.planes[0].float() * 0.9).byte())
+        and torch.equal(d.planes[1], s.planes[1])
+        for d, s in zip(dimmed, surfs))
+    require(ok, "sample_torch")
+    log("(14b) sample_torch device half: 4 seeded 1080p NV12 Surfaces -> "
+        "luma x0.9 in torch -> Surfaces on the card: luma and chroma exact")
+
+    # sample_remap: NV12 → RGB → barrel remap, vs the CPU
+    xmap, ymap = sample_remap.barrel_maps(SRC_W, SRC_H)
+    cc = nvc.ColorspaceConversionContext(space, rng)
+    up = nvc.PyFrameUploader(SRC_W, SRC_H, nvc.PixelFormat.NV12, device)
+    up_cpu = nvc.PyFrameUploader(SRC_W, SRC_H, nvc.PixelFormat.NV12, "cpu")
+    got = list(sample_remap.run([up.UploadSingleFrame(f.reshape(-1))
+                                 for f in nv[:2]], xmap, ymap, cc, device))
+    want = list(sample_remap.run([up_cpu.UploadSingleFrame(f.reshape(-1))
+                                  for f in nv[:2]], xmap, ymap, cc, "cpu"))
+    diff = max(_maxdiff(g.core.download(), w.core.download())
+               for g, w in zip(got, want))
+    require(len(got) == 2 and got[0].Width() == SRC_W and diff <= 1,
+            "sample_remap")
+    log(f"(14b) sample_remap: 2 seeded 1080p NV12 frames -> RGB -> barrel "
+        f"remap on the card vs the CPU: max {diff} code(s) (tol 1)")
+
+    # the analysis samples on phase 9's seeded luma at 1080p
+    inp = _analysis_inputs(SRC_H, SRC_W)
+    shots = sample_scenecut.run(inp["shots"].numpy(), batch=16,
+                                min_score=0.18, device=device)
+    require(shots == [(0, 16), (16, 32)], f"sample_scenecut {shots}")
+    log(f"(14b) sample_scenecut: 32 seeded 1080p frames, a cut after 16: "
+        f"shots {shots}")
+    _, corr, raw, res = sample_stabilize.run(inp["jittered"][:16].numpy(),
+                                             sigma=4.0, device=device)
+    require(res < 0.35 * raw, "sample_stabilize")
+    log(f"(14b) sample_stabilize: 16 jittered 1080p frames: mean "
+        f"|frame-to-frame motion| {raw:.3f} px -> {res:.3f} px, max "
+        f"correction {float(np.abs(corr).max()):.2f} px")
+    move = [(0, 0), (2, 1), (4, 2)]  # a steady pan: mid lies halfway
+    prev, mid, nxt = _moving(SRC_H, SRC_W, move, 36).numpy()
+    fl = sample_flow_interp.run(prev, mid, nxt, levels=3, iters=4,
+                                device=device)
+    shift = float(np.hypot(*move[2]))
+    log(f"(14b) sample_flow_interp: 1080p triplet panning {move[2]} px: "
+        f"median |flow| {fl['flow']:.3f} px (want {shift:.3f}, tol 0.1), "
+        f"midpoint PSNR {fl['synth']:.2f} dB vs frame-repeat "
+        f"{fl['repeat']:.2f} dB")
+    require(abs(fl["flow"] - shift) <= 0.1 and fl["synth"] > fl["repeat"],
+            "sample_flow_interp")
+    return rec
+
+
+def sample_train_path(device, libav_missing: str, tmpdir: str) -> int:
+    """14 (c): sample_train_video.run on phase 10's seeded source, on a
+    mesh (1, 1) of a world of one, with a checkpoint that a fresh model,
+    optimizer and loader resume from."""
+    from videoprocessingframework_torch.models import video_resnet18_like
+    from videoprocessingframework_torch.parallel.mesh import batch_sharding
+    from videoprocessingframework_torch.parallel.train import (
+        full_state_dict,
+        make_train_step,
+    )
+    from videoprocessingframework_torch.samples import sample_train_video
+    from videoprocessingframework_torch.samples._utils import (
+        seeded,
+        world_mesh,
+    )
+
+    steps, nclass = 8, len(TRAIN_LABELS)
+    make_loader = _train_source(device, libav_missing, tmpdir)
+    ckdir = pathlib.Path(f"{tmpdir}/train_ck")
+    ckdir.mkdir()
+    with world_mesh(device, ("data", "model"), (1, 1)) as mesh:
+        def parts():
+            loader = make_loader(clip_len=4, batch_size=2, out_size=(64, 64),
+                                 output="rgb_f32", drop_last=True,
+                                 sharding=batch_sharding(mesh),
+                                 labels=list(range(nclass)))
+            model = seeded(lambda: video_resnet18_like(
+                num_classes=nclass, frames=4)).to(device)
+            opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+            return loader, model, opt
+
+        loader, model, opt = parts()
+        step = make_train_step(model, opt, mesh)
+        kw = dict(num_classes=nclass, checkpoint=(ckdir, model, opt),
+                  save_every=4)
+        _, _, first = sample_train_video.run(loader, step, 1, **kw)
+        (done, metrics, secs), n = _launched(lambda: sample_train_video.run(
+            loader, step, steps, done=1, **kw))
+        require(done == steps and np.isfinite(metrics["loss"])
+                and n >= steps - 1, "sample_train_video")
+        loader2, model2, opt2 = parts()
+        make_train_step(model2, opt2, mesh)
+        resumed = sample_train_video.restore(ckdir, model2, opt2, loader2)
+        same = all(torch.equal(a, b) for a, b in zip(
+            full_state_dict(model).values(),
+            full_state_dict(model2).values()))
+        require(resumed == steps and same, "sample_train_video resume")
+    log(f"(14c) sample_train_video.run: video-ResNet-18-like (2 clips x 4 "
+        f"frames at 64², rgb_f32) on mesh (1, 1): the first step "
+        f"{first:.2f} s, steps 2-{steps} in {secs:.2f} s (host clock), final "
+        f"loss {metrics['loss']:.4f}; planar launches in steps 2-{steps} "
+        f"{n}; resumed from the step-{resumed} checkpoint with equal weights")
+    return n
+
+
+def sample_mains(device, libav_missing: str, tmpdir: str) -> None:
+    """14 (d): every sample's main() on tests/assets/test.mp4 where libav
+    builds; else one line a sample."""
+    import importlib
+
+    if libav_missing:
+        for name in dict.fromkeys(n for n, _ in SAMPLE_MAINS):
+            log(f"(14d) {name}.main did not run: it reads or writes its "
+                f"video through libav, whose development files are absent "
+                f"({libav_missing})")
+        return
+    mp4 = str(pathlib.Path(__file__).resolve().parent / "tests" / "assets"
+              / "test.mp4")
+    for name, args in SAMPLE_MAINS:
+        mod = importlib.import_module(
+            f"videoprocessingframework_torch.samples.{name}")
+        argv = [a.format(mp4=mp4, tmp=tmpdir) for a in args]
+        t0 = time.perf_counter()
+        rc = mod.main(argv + ["--device", str(device)])
+        require(rc == 0, f"{name}.main({argv}) returned {rc}")
+        log(f"(14d) {name}.main {' '.join(args)}: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def samples_path(device, libav_missing: str, tmpdir: str) -> dict:
+    """Phase 14: the samples (videoprocessingframework_torch/samples), at
+    torch's default cuDNN setting, as a sample runs (no benchmark search
+    at each new shape)."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.benchmark = False
+    try:
+        resnet = sample_resnet_path(device)
+        dev = sample_device_paths(device, tmpdir)
+        train = sample_train_path(device, libav_missing, tmpdir)
+        sample_mains(device, libav_missing, tmpdir)
+    finally:
+        torch.backends.cudnn.benchmark = True
+    nv12 = resnet["launches"] + dev["nv12"]
+    log(f"fused_resize_csc NV12 instantiation launches (phase 14: "
+        f"sample_resnet and sample_segmentation): {nv12}")
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return {"launches": nv12 + dev["planar"] + train, "nv12": nv12,
+            "resnet": resnet}
+
+
 # ---- main ----------------------------------------------------------------------
 
 
@@ -2879,6 +3304,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=".") as tmp:
         par = parallel_path(device, missing, tmp, times["normalized"]["ms"],
                             train["plain"])
+    with tempfile.TemporaryDirectory(dir=".") as tmp:
+        samples = samples_path(device, missing, tmp)
 
     t = times["normalized"]
     c = conv["times"]["nv12"]
@@ -2890,7 +3317,7 @@ def main() -> int:
         "launches": run["launches"] + served["image"]["launches"]
         + served["clip"]["launches"] + train["plain"]["launches"]
         + xcode["transcode"]["launches"] + xcode["libav"]["launches"]
-        + mjpeg["launches"] + par["launches"],
+        + mjpeg["launches"] + par["launches"] + samples["launches"],
         "max_abs_err": run["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
