@@ -70,7 +70,9 @@ def test_batches_equal_postproc_of_planes(test_mp4):
                                       y.astype(np.int64).sum((1, 2)))
         assert su.item() == u.astype(np.int64).sum()
         np.testing.assert_array_equal(v.numpy(), vv)
-    assert set(pool.timer.summary()) == {"acquire", "dispatch", "drain"}
+    # the CPU path: no staging buffer to wait for and no upload
+    assert set(pool.timer.summary()) == {"acquire", "dispatch", "stage",
+                                         "postproc", "drain"}
 
 
 def test_packed_batches_feed_postproc(test_mp4):

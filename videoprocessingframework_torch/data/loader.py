@@ -37,7 +37,7 @@ from ..core import geometry
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
 from ..core.exceptions import UnseekableInputError
 from ..utils.device import resolve_device, upload
-from ..utils.tracing import StageTimer, trace_range
+from ..utils.tracing import StageTimer
 
 __all__ = ["VideoCorpus", "ClipSampler", "VideoClipLoader", "HostClipLoader"]
 
@@ -358,7 +358,7 @@ class _ClipLoaderBase:
         self._resume_clips = 0  # one-shot skip set by load_state_dict
         # decode (incl. GOP replay, counted apart), dispatch (upload +
         # post-processing enqueue) and drain (the slot-recycle barrier)
-        self.timer = StageTimer()
+        self.timer = StageTimer("loader")
         self._lock = threading.Lock()
         self.frame_stats = {"kept": 0, "replayed": 0, "seeks": 0}
         self._slots: list = []
@@ -480,22 +480,20 @@ class _ClipLoaderBase:
         labels = self._batch_labels(files)
         host = self._slots[slot][:count].view(-1, self._rows,
                                               self.corpus.width)
-        with trace_range("ClipBatchDispatch"):
-            (staged,), uploaded = upload([host], self.device,
-                                         self._copy_stream)
-            if self.pipeline is None:
-                out = staged
-            elif self._augmented:
-                idx = self._dispatch_index
-                self._dispatch_index += 1
-                # globally unique across shards: shards share the seed
-                # (disjoint samples need one permutation), so a bare batch
-                # index would give every shard the same augmentations
-                out = self.pipeline(
-                    staged, epoch=self._dispatch_epoch,
-                    batch_index=idx * self.shard_count + self.shard_index)
-            else:
-                out = self.pipeline(staged)
+        (staged,), uploaded = upload([host], self.device, self._copy_stream)
+        if self.pipeline is None:
+            out = staged
+        elif self._augmented:
+            idx = self._dispatch_index
+            self._dispatch_index += 1
+            # globally unique across shards: shards share the seed
+            # (disjoint samples need one permutation), so a bare batch
+            # index would give every shard the same augmentations
+            out = self.pipeline(
+                staged, epoch=self._dispatch_epoch,
+                batch_index=idx * self.shard_count + self.shard_index)
+        else:
+            out = self.pipeline(staged)
         return out, labels, count, slot, uploaded
 
     def epoch(self, epoch: Optional[int] = None) -> Iterator:
@@ -713,7 +711,7 @@ class VideoClipLoader(_ClipLoaderBase):
                 if not free:
                     raise RuntimeError("batch ring exhausted")
                 slot = free.pop(0)
-                with trace_range("ClipDecode"), self.timer.measure("decode"):
+                with self.timer.measure("decode"):
                     for s, (fi, start) in enumerate(grp):
                         self._note_clip(*self._reader_for(
                             cache, int(fi)).read_clip(
@@ -740,7 +738,7 @@ class VideoClipLoader(_ClipLoaderBase):
                 if not free:
                     raise RuntimeError("batch ring exhausted")
                 slot = free.pop(0)
-                with trace_range("ClipDecode"), self.timer.measure("decode"):
+                with self.timer.measure("decode"):
                     list(ex.map(one, [(slots[slot][s], int(fi), int(start))
                                       for s, (fi, start) in enumerate(grp)]))
                 yield slot, len(grp), [int(fi) for fi, _ in grp]

@@ -25,7 +25,6 @@ import torch
 from ..core.enums import CodecId, SeekMode
 from ..core.packet import SeekContext
 from ..utils.device import upload
-from ..utils.tracing import trace_range
 from .loader import VideoCorpus, _ClipLoaderBase
 
 __all__ = ["MjpegClipLoader"]
@@ -234,8 +233,7 @@ class MjpegClipLoader(_ClipLoaderBase):
                 if not free:
                     raise RuntimeError("coefficient ring exhausted")
                 slot = free.pop(0)
-                with trace_range("JpegClipDecode"), \
-                        self.timer.measure("decode"):
+                with self.timer.measure("decode"):
                     for s, (fi, start) in enumerate(grp):
                         self._fill_one(cache, slots[slot], s, int(fi),
                                        int(start))
@@ -257,8 +255,7 @@ class MjpegClipLoader(_ClipLoaderBase):
                 if not free:
                     raise RuntimeError("coefficient ring exhausted")
                 slot = free.pop(0)
-                with trace_range("JpegClipDecode"), \
-                        self.timer.measure("decode"):
+                with self.timer.measure("decode"):
                     list(ex.map(one, [(slots[slot], s, int(fi), int(start))
                                       for s, (fi, start) in enumerate(grp)]))
                 yield slot, len(grp), [int(fi) for fi, _ in grp]
@@ -271,17 +268,16 @@ class MjpegClipLoader(_ClipLoaderBase):
         base's ``_dispatch``."""
         labels = self._batch_labels(files)
         n = count * self.clip_len
-        with trace_range("JpegClipDispatch"):
-            staged, uploaded = upload([c[:n] for c in self._slots[slot]],
-                                      self.device, self._copy_stream)
-            if self._augmented:
-                idx = self._dispatch_index
-                self._dispatch_index += 1
-                # shard-unique counter: shards share the seed, so a bare
-                # index would give every shard the same augmentations
-                out = self.pipeline(
-                    *staged, epoch=self._dispatch_epoch,
-                    batch_index=idx * self.shard_count + self.shard_index)
-            else:
-                out = self.pipeline(*staged)
+        staged, uploaded = upload([c[:n] for c in self._slots[slot]],
+                                  self.device, self._copy_stream)
+        if self._augmented:
+            idx = self._dispatch_index
+            self._dispatch_index += 1
+            # shard-unique counter: shards share the seed, so a bare
+            # index would give every shard the same augmentations
+            out = self.pipeline(
+                *staged, epoch=self._dispatch_epoch,
+                batch_index=idx * self.shard_count + self.shard_index)
+        else:
+            out = self.pipeline(*staged)
         return out, labels, count, slot, uploaded

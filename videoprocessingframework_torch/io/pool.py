@@ -28,7 +28,7 @@ import torch
 from ..core import geometry
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
 from ..utils.device import resolve_device
-from ..utils.tracing import StageTimer, trace_range
+from ..utils.tracing import StageTimer
 
 
 class _RingFeed:
@@ -58,27 +58,34 @@ class _RingFeed:
         pinned staging buffer → one non-blocking H2D copy on the stage's
         side stream, which the current stream then waits for; the stage's
         ``done`` event (recorded by :meth:`batches` after the
-        post-processing) guards the staging buffer's reuse."""
+        post-processing) guards the staging buffer's reuse. Timed as the
+        ``wait``, ``stage`` and ``upload`` stages."""
         cap = self.batch_size
+        timer = self.timer
         src = torch.from_numpy(slot)
         if self.device.type == "cpu":
             # from_numpy aliases the ring slot: copy before it is released
-            return self._split(src.clone(), n, cap)
+            with timer.measure("stage"):
+                return self._split(src.clone(), n, cap)
         buf, done = staging.get("buf"), staging.get("done")
         if done is not None:
-            done.synchronize()  # the last H2D from this buffer is over
+            with timer.measure("wait"):
+                done.synchronize()  # the last H2D from this buffer is over
         if buf is None:
             buf = torch.empty(src.numel(), dtype=torch.uint8, pin_memory=True)
             staging["buf"] = buf
-        buf.copy_(src)
-        dev = torch.empty(src.numel(), dtype=torch.uint8, device=self.device)
-        copy_stream = staging["stream"]
-        copy_stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(copy_stream):
-            dev.copy_(buf, non_blocking=True)
-            uploaded = torch.cuda.Event()
-            uploaded.record(copy_stream)
-        torch.cuda.current_stream(self.device).wait_event(uploaded)
+        with timer.measure("stage"):
+            buf.copy_(src)
+        with timer.measure("upload"):
+            dev = torch.empty(src.numel(), dtype=torch.uint8,
+                              device=self.device)
+            copy_stream = staging["stream"]
+            copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(copy_stream):
+                dev.copy_(buf, non_blocking=True)
+                uploaded = torch.cuda.Event()
+                uploaded.record(copy_stream)
+            torch.cuda.current_stream(self.device).wait_event(uploaded)
         return self._split(dev, n, cap)
 
     def batches(
@@ -96,9 +103,15 @@ class _RingFeed:
         released. ``depth`` is capped below ``n_buffers`` so the decode
         workers keep free slots.
 
-        Stage timers: ``acquire`` = waiting on the decode workers,
-        ``dispatch`` = staging copy + upload + post-processing enqueue,
-        ``drain`` = waiting on the device.
+        Stages of ``self.timer`` (each also the span ``feed.<stage>``):
+        ``acquire`` = waiting on the decode workers; ``dispatch`` = the
+        batch's whole enqueue, made of ``wait`` (blocked on the device
+        until the staging buffer is free; CUDA only), ``stage`` (the
+        slot's copy into the pinned buffer, a clone on the CPU),
+        ``upload`` (the H2D enqueue on the side stream and its events;
+        CUDA only) and ``postproc`` (the post-processing call and the
+        event after it); ``drain`` = blocked on the device until the
+        oldest batch in flight is done.
 
         ``transfer_priority`` (default: on only for 1-core hosts)
         brackets each dispatch+drain window with :meth:`pause`, so decode
@@ -134,18 +147,19 @@ class _RingFeed:
                 if transfer_priority:
                     self.pause(True)
                 try:
-                    with self.timer.measure("dispatch"), trace_range(
-                        "FusedPostproc"
-                    ):
-                        stage = stages[k % depth]
+                    with self.timer.measure("dispatch"):
+                        staging = stages[k % depth]
                         k += 1
-                        planes = self._upload(slot, n, stage)
-                        out = planes if postproc is None else postproc(*planes)
-                        done = None
-                        if on_gpu:
-                            done = torch.cuda.Event()
-                            done.record(torch.cuda.current_stream(self.device))
-                            stage["done"] = done
+                        planes = self._upload(slot, n, staging)
+                        with self.timer.measure("postproc"):
+                            out = (planes if postproc is None
+                                   else postproc(*planes))
+                            done = None
+                            if on_gpu:
+                                done = torch.cuda.Event()
+                                done.record(
+                                    torch.cuda.current_stream(self.device))
+                                staging["done"] = done
                     pending.append((out, done))
                     drained = drain_one() if len(pending) >= depth else None
                 finally:
@@ -236,7 +250,7 @@ class NativeDecodePool(_RingFeed):
         )
         if not self._h:
             raise RuntimeError(f"pool create failed: {self._err()}")
-        self.timer = StageTimer()
+        self.timer = StageTimer("feed")
 
     def pause(self, paused: bool = True) -> None:
         """Transfer-priority handshake: ``pause(True)`` puts the decode
@@ -373,7 +387,7 @@ class HostBatchRing(_RingFeed):
             raise RuntimeError("rewind with slots still held")
         self._left = n_batches
         self._next = 0
-        self.timer = StageTimer()
+        self.timer = StageTimer("feed")
         return self
 
     def _acquire_raw(self):

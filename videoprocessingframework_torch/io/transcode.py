@@ -23,7 +23,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from ..core.enums import PixelFormat
-from ..utils.tracing import StageTimer, trace_range
+from ..utils.tracing import StageTimer
 from .demuxer import FFmpegDemuxer
 from .encoder import VideoEncoder
 from .pool import NativeDecodePool
@@ -75,7 +75,7 @@ class Transcoder:
             device="cpu")
         # acquire = waiting on the decode worker; encode = the encoder on
         # the caller's thread (usually the bottleneck)
-        self.timer = StageTimer()
+        self.timer = StageTimer("transcode")
 
     def run(self, on_packet: Optional[Callable[[np.ndarray, object], None]]
             = None) -> TranscodeStats:
@@ -101,8 +101,7 @@ class Transcoder:
                 if batch is None:
                     break
                 try:
-                    with self.timer.measure("encode"), trace_range(
-                            "EncodeFrame"):
+                    with self.timer.measure("encode"):
                         for frame in batch:
                             emit(enc.encode(frame))
                             st.frames += 1

@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.tracing import trace_range
+
 
 class SameConv2d(nn.Conv2d):
     """Convolution with TensorFlow/Flax "SAME" padding: total padding
@@ -163,12 +165,13 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         """(N, H, W, 3) → (N, num_classes) float32 logits."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
-        for name in self.blocks:
-            x = getattr(self, name)(x)
-        return self.classifier(x.mean(dim=(2, 3)))
+        with trace_range("model.forward"):
+            x = x.to(self.dtype).permute(0, 3, 1, 2)
+            x = F.relu(self.stem_bn(self.stem_conv(x)))
+            x = F.max_pool2d(x, 3, 2, 1)
+            for name in self.blocks:
+                x = getattr(self, name)(x)
+            return self.classifier(x.mean(dim=(2, 3)))
 
 
 def resnet50(num_classes: int = 1000, dtype=torch.bfloat16) -> ResNet:

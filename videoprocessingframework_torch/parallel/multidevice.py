@@ -120,7 +120,7 @@ class MultiDeviceStreamPipeline:
                 f"postproc is bound to {bound}; build it with device='cuda' "
                 "so it computes on each batch's device")
         self.postproc = postproc
-        self.timer = StageTimer()
+        self.timer = StageTimer("multidevice")
         # one buffer a device held in flight while the workers keep two to
         # fill (the pool releases FIFO)
         self._held_max = len(self.devices)
@@ -199,8 +199,7 @@ class MultiDeviceStreamPipeline:
                 i = k % len(self.devices)
                 k += 1
                 dev = self.devices[i]
-                with self.timer.measure("dispatch"), trace_range(
-                        "FusedPostproc"), _on(dev):
+                with self.timer.measure("dispatch"), _on(dev):
                     # full batches after the first ride the single-
                     # transfer flat feed (as NativeDecodePool.batches)
                     if flat is not None:

@@ -31,7 +31,7 @@ from ..core import geometry
 from ..core.enums import PixelFormat
 from ..io.decoder import VideoReader
 from ..utils.device import resolve_device
-from ..utils.tracing import StageTimer, trace_range
+from ..utils.tracing import StageTimer
 
 
 @dataclass
@@ -231,7 +231,7 @@ class MultiStreamPipeline:
         if gate_decode:
             self.inflight = 1
         self.stats = StreamStats()
-        self.timer = StageTimer()
+        self.timer = StageTimer("streams")
 
         probe = VideoReader(self.sources[0])
         self.width = probe.width()
@@ -246,7 +246,7 @@ class MultiStreamPipeline:
         """Upload one host batch and enqueue the post-processing. Returns
         (out, uploaded event, done event); the events are None on the CPU,
         where the batch is copied out of the ring buffer first."""
-        with self.timer.measure("dispatch"), trace_range("FusedPostproc"):
+        with self.timer.measure("dispatch"):
             if not self._on_gpu:
                 dev, uploaded = torch.from_numpy(host.copy()), None
             else:
