@@ -8,6 +8,11 @@ a wrong layout), in each leaf's own dtype (the attention head's
 ``time_pos`` and ``cls_query`` are bf16 parameters in a bf16 Flax model).
 """
 
+import contextlib
+import copy
+import pickle
+import threading
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes  # noqa: F401  (numpy bf16 leaves)
@@ -20,6 +25,7 @@ from videoprocessingframework_tpu.models import video as jvideo
 from videoprocessingframework_tpu.models import vit as jvit
 from videoprocessingframework_tpu.models import weights as jweights
 from videoprocessingframework_torch import models as tm
+from videoprocessingframework_torch.models import graphed
 
 
 def _random_variables(model, x, seed):
@@ -219,3 +225,233 @@ def test_checkpoint_round_trip(tmp_path):
     wrong = {"model": {"cls": torch.zeros(2)}}
     with pytest.raises(ValueError, match="shape"):
         tm.load_checkpoint(str(path), like=wrong)
+
+
+# The models' CUDA-graph replay (models/graphed.py): every call it may not
+# replay runs the eager forward unchanged and is counted by its reason.
+# The replays themselves run on the card (tests/test_torch_graphed.py).
+
+_GRAPHED = {
+    "resnet": lambda: tm.resnet18_like(num_classes=5),
+    "vit": lambda: tm.ViT(num_classes=5, patch=8, dim=32, depth=1, heads=2,
+                          image_size=(32, 32)),
+}
+
+
+def _call_eager_case(m, x, reason):
+    """``(model(x), model._forward(x))`` in the state that makes the call
+    ineligible for ``reason``."""
+    if reason == "compiling":
+        with torch.no_grad():
+            got = torch.export.export(m, (x,)).module()(x)
+            return got, m._forward(x)
+    if reason == "mode":
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with torch.no_grad():
+            with FlopCounterMode(display=False) as fc:
+                got = m(x)
+            assert fc.get_total_flops() > 0  # the mode saw the eager ops
+            return got, m._forward(x)
+    if reason == "training":
+        m.train()
+    grad = torch.enable_grad() if reason == "grad" else torch.no_grad()
+    cast = torch.autocast("cpu", dtype=torch.bfloat16) \
+        if reason == "autocast" else contextlib.nullcontext()
+    with grad, cast:
+        return m(x), m._forward(x)
+
+
+@pytest.mark.parametrize("reason", ["cpu", "grad", "training", "autocast",
+                                    "compiling", "mode"])
+@pytest.mark.parametrize("family", sorted(_GRAPHED))
+def test_graph_ineligible_calls_run_eager(family, reason):
+    torch.manual_seed(0)
+    m = _GRAPHED[family]().eval()
+    x = torch.randn(2, 32, 32, 3)
+    got, want = _call_eager_case(m, x, reason)
+    assert torch.equal(got, want)
+    assert m.graph_stats == {"captures": 0, "replays": 0,
+                             "eager": {reason: 1}}
+    assert len(m.graphs) == 0
+
+
+_MOVES = {
+    "to_dtype": lambda m: m.to(torch.float32),
+    "channels_last": lambda m: m.to(memory_format=torch.channels_last),
+    "to_empty": lambda m: m.to_empty(device="cpu"),
+}
+
+
+@pytest.mark.parametrize("move", sorted(_MOVES))
+@pytest.mark.parametrize("family", sorted(_GRAPHED))
+def test_graph_cache_dropped_by_apply(family, move):
+    m = _GRAPHED[family]().eval()
+    entry = graphed._Entry()
+    entry.graph = object()
+    m.graphs.entries["signature"] = entry
+    m.graphs.state = ()
+    assert len(m.graphs) == 1
+    _MOVES[move](m)
+    assert len(m.graphs) == 0 and m.graphs.state is None
+
+
+@pytest.mark.parametrize("family", sorted(_GRAPHED))
+def test_graph_signatures_capped(family, monkeypatch):
+    """Past MAX_GRAPHS signatures a call runs eagerly as ``cap``; the
+    tracked ones go on counting their eager runs towards a capture."""
+    monkeypatch.setattr(graphed, "_ineligible", lambda model, x: None)
+    m = _GRAPHED[family]().eval()
+    n = graphed.MAX_GRAPHS
+    with torch.no_grad():
+        for b in range(1, n + 2):
+            x = torch.randn(b, 32, 32, 3)
+            assert torch.equal(m(x), m._forward(x))
+        m(torch.randn(1, 32, 32, 3))
+    assert len(m.graphs.entries) == n and len(m.graphs) == 0
+    assert m.graph_stats["eager"] == {"warmup": n + 1, "cap": 1}
+
+
+@pytest.mark.parametrize("family", sorted(_GRAPHED))
+def test_graph_lock_held_runs_eager(family, monkeypatch):
+    monkeypatch.setattr(graphed, "_ineligible", lambda model, x: None)
+    m = _GRAPHED[family]().eval()
+    x = torch.randn(2, 32, 32, 3)
+    out = []
+    with torch.no_grad(), m.graphs.lock:
+        t = threading.Thread(target=lambda: out.append(m(x)))
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+        assert torch.equal(out[0], m._forward(x))
+    assert m.graph_stats["eager"] == {"busy": 1}
+
+
+def test_graph_flags_host_work_and_training():
+    m = tm.resnet18_like(num_classes=5).eval()
+
+    def reason():
+        found, ptrs = graphed._walk(m)
+        return found if ptrs is None else None
+
+    assert reason() is None
+    h = m.register_forward_hook(lambda *a: None)  # runs outside forward
+    assert reason() is None
+    h.remove()
+    h = m.stage1_block1.conv1.register_forward_pre_hook(lambda *a: None)
+    assert reason() == "hooks"
+    h.remove()
+    h = torch.nn.modules.module.register_module_forward_hook(
+        lambda *a: None)
+    try:
+        assert reason() == "hooks"
+    finally:
+        h.remove()
+    m.stem_bn.forward = m.stem_bn.forward
+    assert reason() == "hooks"
+    del m.stem_bn.forward
+    m.stage2_block1.bn2.train()
+    assert reason() == "training"
+    m.eval()
+    assert reason() is None
+
+
+def test_graph_storage_tracks_replaced_not_updated():
+    m = tm.resnet18_like(num_classes=5).eval()
+    modules, before = graphed._walk(m)
+    assert sorted(map(id, modules)) == sorted(map(id, m.modules()))
+    assert len(before) == len(m.state_dict())
+    with torch.no_grad():
+        m.classifier.bias.add_(1.0)
+        m.stem_bn.running_var.mul_(2.0)
+    m.load_state_dict(m.state_dict())
+    assert graphed._walk(m) == (modules, before)
+    m.classifier.weight.data = m.classifier.weight.data.clone()
+    assert graphed._walk(m)[1] != before
+    before = graphed._walk(m)[1]
+    m.load_state_dict({k: v.clone() for k, v in m.state_dict().items()},
+                      assign=True)
+    assert graphed._walk(m)[1] != before
+
+
+def _swap_classifier(m):
+    c = m.classifier
+    m.classifier = type(c)(c.in_features, c.out_features + 1).eval()
+
+
+#: changes after a capture -> whether they drop the model's graphs
+_CHANGES = {
+    "swap_module": (_swap_classifier, True),
+    "replace_storage": (lambda m: setattr(m.classifier.weight, "data",
+                                          m.classifier.weight.data.clone()),
+                        True),
+    "assign_state": (lambda m: m.load_state_dict(
+        {k: v.clone() for k, v in m.state_dict().items()}, assign=True),
+        True),
+    "update_in_place": (lambda m: m.classifier.bias.data.add_(1.0), False),
+}
+
+
+@pytest.mark.parametrize("change", sorted(_CHANGES))
+@pytest.mark.parametrize("family", sorted(_GRAPHED))
+def test_graph_cache_dropped_when_model_changes(family, change, monkeypatch):
+    """A submodule swapped or a storage replaced after a capture drops
+    the graphs (the next call starts the eager runs again, and returns
+    the changed model's output); an in-place update keeps them."""
+    monkeypatch.setattr(graphed, "_ineligible", lambda model, x: None)
+    m = _GRAPHED[family]().eval()
+    x = torch.randn(2, 32, 32, 3)
+    with torch.no_grad():
+        m(x)  # one eager run of the signature
+    entry = graphed._Entry()
+    entry.graph = object()  # a capture of another signature
+    m.graphs.entries["signature"] = entry
+    m.graphs.modules, m.graphs.state = graphed._walk(m)
+    fn, drops = _CHANGES[change]
+    fn(m)
+    with torch.no_grad():
+        got = m(x)
+        assert torch.equal(got, m._forward(x))
+    assert got.shape[1] == (6 if change == "swap_module" else 5)
+    assert len(m.graphs) == (0 if drops else 1)
+    assert (m.graphs.state is None) == drops
+    # after a drop the signature's eager runs count from the start again
+    assert len(m.graphs.entries) == (1 if drops else 2)
+    assert m.graphs.entries[next(iter(m.graphs.entries))].runs == \
+        (1 if drops else 2)
+    assert m.graph_stats["eager"] == {"warmup": 2}
+
+
+@pytest.mark.parametrize("switch", [
+    "allow_tf32", "allow_bf16_reduced_precision_reduction",
+    "allow_fp16_reduced_precision_reduction"])
+def test_graph_key_follows_matmul_switches(switch, monkeypatch):
+    """A switch that changes what cuBLAS computes gives a call another
+    signature, so the graph captured under the old setting is not
+    replayed under the new one."""
+    monkeypatch.setattr(graphed, "_ineligible", lambda model, x: None)
+    m = _GRAPHED["vit"]().eval()
+    x = torch.randn(2, 32, 32, 3)
+    matmul = torch.backends.cuda.matmul
+    before = graphed._switches()
+    with torch.no_grad():
+        m(x)
+        monkeypatch.setattr(matmul, switch, not getattr(matmul, switch))
+        assert graphed._switches() != before
+        m(x)
+    assert len(m.graphs.entries) == 2
+
+
+@pytest.mark.parametrize("copy_fn", ["deepcopy", "pickle"])
+def test_graph_cache_not_copied(copy_fn):
+    m = tm.vit_tiny(num_classes=3, image_size=(32, 32)).eval()
+    entry = graphed._Entry()
+    entry.graph = object()
+    m.graphs.entries["signature"] = entry
+    c = copy.deepcopy(m) if copy_fn == "deepcopy" \
+        else pickle.loads(pickle.dumps(m))
+    assert len(c.graphs) == 0 and c.graphs is not m.graphs
+    assert c.graphs.lock is not m.graphs.lock
+    x = torch.randn(1, 32, 32, 3)
+    with torch.no_grad():
+        assert torch.equal(c(x), m(x))

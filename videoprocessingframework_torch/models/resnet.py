@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.tracing import trace_range
+from .graphed import GraphedModule
 
 
 class SameConv2d(nn.Conv2d):
@@ -142,7 +142,7 @@ class BottleneckBlock(nn.Module):
         return F.relu(residual + y)
 
 
-class ResNet(nn.Module):
+class ResNet(GraphedModule):
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  width: int = 64, dtype=torch.bfloat16):
         super().__init__()
@@ -163,15 +163,14 @@ class ResNet(nn.Module):
                        if n.startswith("stage")]
         self.classifier = Float32Linear(cin, num_classes)
 
-    def forward(self, x):
+    def _forward(self, x):
         """(N, H, W, 3) → (N, num_classes) float32 logits."""
-        with trace_range("model.forward"):
-            x = x.to(self.dtype).permute(0, 3, 1, 2)
-            x = F.relu(self.stem_bn(self.stem_conv(x)))
-            x = F.max_pool2d(x, 3, 2, 1)
-            for name in self.blocks:
-                x = getattr(self, name)(x)
-            return self.classifier(x.mean(dim=(2, 3)))
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        x = F.relu(self.stem_bn(self.stem_conv(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        for name in self.blocks:
+            x = getattr(self, name)(x)
+        return self.classifier(x.mean(dim=(2, 3)))
 
 
 def resnet50(num_classes: int = 1000, dtype=torch.bfloat16) -> ResNet:

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.tracing import trace_range
+from .graphed import GraphedModule
 from .resnet import Float32Linear, SameConv2d
 
 
@@ -110,7 +110,7 @@ class ViTBlock(nn.Module):
         return x + self.Dense_1(y)
 
 
-class ViT(nn.Module):
+class ViT(GraphedModule):
     """(N, H, W, 3) → (N, num_classes) float32 logits, or with
     ``head=False`` the (N, dim) normed CLS features."""
 
@@ -137,18 +137,20 @@ class ViT(nn.Module):
         if tuple(x.shape[1:3]) != self.image_size:
             raise ValueError(f"ViT built for {self.image_size} images, got "
                              f"{tuple(x.shape[1:3])}")
-        with trace_range("model.forward"):
-            n, dt = x.shape[0], self.dtype
-            x = self.patchify(x.to(dt).permute(0, 3, 1, 2))
-            x = x.flatten(2).transpose(1, 2)  # (N, tokens, dim), row-major
-            x = torch.cat([self.cls.to(dt).expand(n, -1, -1), x], 1)
-            x = x + self.pos_embed.to(dt)
-            for i in range(self.depth):
-                x = getattr(self, f"block{i}")(x)
-            x = self.LayerNorm_0(x[:, 0])
-            if self.classifier is None:
-                return x
-            return self.classifier(x)
+        return super().forward(x)
+
+    def _forward(self, x):
+        n, dt = x.shape[0], self.dtype
+        x = self.patchify(x.to(dt).permute(0, 3, 1, 2))
+        x = x.flatten(2).transpose(1, 2)  # (N, tokens, dim), row-major
+        x = torch.cat([self.cls.to(dt).expand(n, -1, -1), x], 1)
+        x = x + self.pos_embed.to(dt)
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x)
+        x = self.LayerNorm_0(x[:, 0])
+        if self.classifier is None:
+            return x
+        return self.classifier(x)
 
 
 def vit_small(num_classes: int = 1000, dtype=torch.bfloat16,

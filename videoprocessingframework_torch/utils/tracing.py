@@ -24,9 +24,11 @@ Spans at the feed's and the model's boundaries:
   ``feed.stage``, ``feed.upload`` and ``feed.postproc`` nested in it) and
   ``feed.drain`` (``io/pool.py``); ``streams.*``, ``multidevice.*``,
   ``loader.*`` and ``transcode.*`` in the other pipelines;
-* ``model.forward`` around the body of ``ResNet.forward`` and
-  ``ViT.forward`` (a video model that runs a ViT inside its own forward
-  holds one nested in its own).
+* ``model.forward`` around the forward of ``ResNet`` and ``ViT``
+  (``models/graphed.py`` ``GraphedModule.forward``; a video model that
+  runs a ViT inside its own forward holds one nested in its own); inside
+  it ``model.graph`` around a CUDA graph's copy-in, replay and clone, and
+  ``model.graph_capture`` around a capture.
 """
 
 from __future__ import annotations
