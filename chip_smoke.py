@@ -190,11 +190,13 @@ SEG = 512
 #: server (the clip server's kernel batches are 8, 16 and 32 frames),
 #: whose plans cut shorter bands, and the FCN's 8 frames at SEG²; then
 #: the device-transcode chain's 1:1 batch (phase 11a: 18 column tiles,
-#: the last ragged)
+#: the last ragged); then the MoonViT cell's 8 frames at 896² (8 tiles of
+#: 112 columns)
 KERNEL_CHECKS = [(BATCH, SRC_H, SRC_W, OUT, OUT), (4, 2160, 3840, OUT, OUT),
                  (2, 464, 848, 61, 45)] + [
     (b, SRC_H, SRC_W, OUT, OUT) for b in (1, 2, 4, 8, 16)] + [
-    (8, SRC_H, SRC_W, SEG, SEG), (4, SRC_H, SRC_W, SRC_H, SRC_W)]
+    (8, SRC_H, SRC_W, SEG, SEG), (4, SRC_H, SRC_W, SRC_H, SRC_W),
+    (8, SRC_H, SRC_W, 896, 896)]
 #: checks at full-range BT.601, the JPEG convention: what the split MJPEG
 #: decoder (phase 12) launches
 JPEG_KERNEL_CHECKS = [(BATCH, SRC_H, SRC_W, OUT, OUT)]

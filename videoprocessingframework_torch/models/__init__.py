@@ -1,6 +1,7 @@
 """Bundled models, weight conversion and checkpoints."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
+from .moonvit import MoonViT, kimi_vl_moonvit
 from .resnet import ResNet, resnet18_like, resnet50
 from .segmentation import FCNResNet, fcn_resnet
 from .video import VideoClassifier, video_resnet18_like, video_resnet50
@@ -16,12 +17,14 @@ from .weights import from_jax_variables, load_torch_resnet50
 
 __all__ = [
     "FCNResNet",
+    "MoonViT",
     "ResNet",
     "VideoClassifier",
     "VideoViT",
     "ViT",
     "fcn_resnet",
     "from_jax_variables",
+    "kimi_vl_moonvit",
     "load_checkpoint",
     "load_torch_resnet50",
     "resnet18_like",

@@ -48,11 +48,11 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """Flax ``nn.LayerNorm(dtype=float32)``: ε = 1e-6, input, scale and
-    bias in float32, the result in ``out_dtype``."""
+    """Flax ``nn.LayerNorm(dtype=float32)``: ε = 1e-6 unless ``eps``,
+    input, scale and bias in float32, the result in ``out_dtype``."""
 
-    def __init__(self, dim: int, out_dtype=torch.float32):
-        super().__init__(dim, eps=1e-6)
+    def __init__(self, dim: int, out_dtype=torch.float32, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
         self.out_dtype = out_dtype
 
     def forward(self, x):
