@@ -153,10 +153,29 @@ Phases, each of which raises on failure:
    search at each new shape), as a sample does; 14c times its first step
    apart.
 
+15. The model layer's kernels (models/layers_cuda.py): LayerNorm
+   (csrc/layer_norm.cu) and MoonViT's RoPE of q and k (csrc/rope2d.cu)
+   against their plain versions at the shapes the cells run (MoonViT's
+   32,768 × 1152 rows and pre_norm's (8, 1024, 4, 1152) bf16 → bf16;
+   ViT-S/16's 32·197 × 384 rows and class-token rows bf16 → float32;
+   RoPE of an (8, 4096, 3, 16, 72) bf16 QKV output on the 64×64 grid and
+   of an 8-frame 6×10 grid): bf16 stores within one bf16 ulp, float32
+   within 1e-5 of the largest value; each timed beside its bound (each
+   byte read once and written once) and the plain chain's time, and
+   LayerNorm beside ``F.layer_norm`` on bf16 rows where that one call
+   computes the same function. (b) The published MoonViT
+   (``kimi_vl_moonvit()``) at the cell's 8 frames of 896², one eager
+   forward with the counts set to 0 just before it: 56 LayerNorm and 27
+   RoPE launches, in ``LAUNCHES`` and in ``vision_stats``; then the same
+   forward on the plain versions, its output's largest gap from the
+   kernels' and both forwards' CUDA-event times.
+
 The line before the last is the per-kernel JSON record (launches of
 fused_resize_csc counted over phases 5, 8, 10 (a), 11a, 11c, 12, 13 and
-14 (a)-(c), of csc_rgb_planar over phases 6 and 11b); the last line is
-``{"ok": true, "device": {...}}``.
+14 (a)-(c), of csc_rgb_planar over phases 6 and 11b; of layer_norm and
+rope2d counted a path at a time, each path's own count under
+``launches_by_path``: the models of phases 5-14, set to 0 before each
+path, and 15 (b)); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3268,6 +3287,178 @@ def samples_path(device, libav_missing: str, tmpdir: str) -> dict:
             "resnet": resnet}
 
 
+# ---- phase 15 ------------------------------------------------------------------
+
+LAYERS_SOURCES = {
+    kind: f"videoprocessingframework_torch/csrc/{kind}.cu"
+    for kind in ("layer_norm", "rope2d")}
+#: (name, leading shape, width, input dtype, output dtype, ε, class-token
+#: rows) of the LayerNorm checks: what the MoonViT and ViT-S/16 cells run
+LN_CHECKS = [
+    ("moonvit 32768x1152", (32768,), 1152, torch.bfloat16, torch.bfloat16,
+     1e-5, False),
+    ("pre_norm 8x1024x4x1152", (8, 1024, 4), 1152, torch.bfloat16,
+     torch.bfloat16, 1e-5, False),
+    ("vit 6304x384", (32 * 197,), 384, torch.bfloat16, torch.float32, 1e-6,
+     False),
+    ("vit cls 32x384", (32, 197), 384, torch.bfloat16, torch.float32, 1e-6,
+     True),
+]
+#: (name, batch, grid, heads, head_dim) of the RoPE checks, bf16
+ROPE_CHECKS = [("moonvit 8x64x64", 8, (64, 64), 16, 72),
+               ("moonvit 8x6x10", 8, (6, 10), 16, 72)]
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |v|, no finer than at 2^-8 (near zero the two
+    versions' float32 sums can round an output that cancels more than its
+    own ulp apart; tests/test_torch_layers_cuda.py holds the same)."""
+    m = v.float().abs().clamp_min(2.0 ** -8)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _layer_err(got, want) -> float:
+    """bf16: the largest |kernel − plain| in bf16 ulps of the plain
+    value (≤ 1 required); float32: over the largest |value| (< 1e-5)."""
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"{got.dtype} {tuple(got.shape)} vs {want.dtype} "
+            f"{tuple(want.shape)}")
+    d = (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        err = float((d / _bf16_ulp(want)).max())
+        require(err <= 1.0, f"bf16 stores {err} ulp from the plain version")
+    else:
+        err = float(d.max() / want.float().abs().max())
+        require(err < 1e-5, f"float32 stores {err:.2e} from the plain version")
+    return err
+
+
+def _layer_line(kind, name, ms, ms2, plain, nbytes, mem_rate, extra=""):
+    kernel_ms = min(ms, ms2)
+    bound = 1e3 * nbytes / mem_rate
+    log(f"(15) {kind} {name}: kernel {ms:.4f} / {ms2:.4f} ms, "
+        f"{nbytes / 1e6:.1f} MB, {nbytes / kernel_ms / 1e6:.1f} GB/s vs "
+        f"bound {bound:.4f} ms (bytes; {100 * bound / kernel_ms:.1f}% of "
+        f"bound); plain {plain:.4f} ms{extra}")
+    return dict(ms=kernel_ms, plain_ms=plain, bound_ms=bound,
+                bound_by="bytes")
+
+
+def model_layers_path(device, rates) -> dict:
+    """Phase 15: the LayerNorm and RoPE kernels against their plain
+    versions at the cells' shapes, each timed beside its bound."""
+    import torch.nn.functional as F
+
+    from videoprocessingframework_torch.models import layers_cuda as lc
+    from videoprocessingframework_torch.models.moonvit import (
+        rope2d,
+        rope_freqs,
+    )
+
+    mem_rate = rates[0]
+    g = torch.Generator(device=device).manual_seed(15)
+    rec = {"layer_norm": {}, "rope2d": {},
+           "worst": {"layer_norm": 0.0, "rope2d": 0.0}}
+    for name, lead, d, dt, out_dt, eps, cls in LN_CHECKS:
+        w = 1.0 + 0.1 * torch.randn(d, device=device, generator=g)
+        b = 0.1 * torch.randn(d, device=device, generator=g)
+        x = (3.0 * torch.randn(*lead, d, device=device, generator=g)
+             + torch.randn(*lead, 1, device=device, generator=g)).to(dt)
+        if cls:
+            x = x[:, 0]  # rows 197·384 apart, as ViT's final norm reads
+        with torch.no_grad():
+            def kern():
+                return lc.layer_norm(x, w, b, eps, out_dt)
+
+            def plain():
+                return F.layer_norm(x.float(), (d,), w, b, eps).to(out_dt)
+
+            err = _layer_err(kern(), plain())
+            rec["worst"]["layer_norm"] = max(rec["worst"]["layer_norm"], err)
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, reps=5)
+            ms2 = cuda_ms(kern)
+            extra, library = "", None
+            if dt == out_dt == torch.bfloat16:
+                # one PyTorch call on bf16 rows (it takes γ and β only in
+                # the rows' dtype): the speed yardstick, not the function
+                wb, bb = w.bfloat16(), b.bfloat16()
+                library = cuda_ms(lambda: F.layer_norm(x, (d,), wb, bb, eps))
+                extra = (f"; library F.layer_norm on bf16 rows, bf16 γ, β "
+                         f"{library:.4f} ms")
+        rows = x.numel() // d
+        nbytes = rows * d * (x.element_size() + out_dt.itemsize) + 8 * d
+        r = _layer_line("layer_norm", name, ms, ms2, plain_ms, nbytes,
+                        mem_rate, f"; err {err:.3g}{extra}")
+        rec["layer_norm"][name] = dict(r, library_ms=library)
+    for name, n, grid, heads, hd in ROPE_CHECKS:
+        length = grid[0] * grid[1]
+        qkv = torch.randn(n, length, 3 * heads * hd, device=device,
+                          generator=g).bfloat16().view(n, length, 3, heads,
+                                                       hd)
+        freqs = rope_freqs(grid, hd, 10000.0, device)
+        with torch.no_grad():
+            def kern():
+                return lc.rope2d(qkv, freqs)
+
+            def plain():
+                return rope2d(qkv[:, :, 0], freqs), rope2d(qkv[:, :, 1],
+                                                           freqs)
+
+            err = max(_layer_err(a, p) for a, p in zip(kern(), plain()))
+            rec["worst"]["rope2d"] = max(rec["worst"]["rope2d"], err)
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, reps=5)
+            ms2 = cuda_ms(kern)
+        # q and k read once and written once, the table read once
+        nbytes = 4 * n * length * heads * hd * 2 + length * hd * 4
+        rec["rope2d"][name] = _layer_line(
+            "rope2d", name, ms, ms2, plain_ms, nbytes, mem_rate,
+            f"; err {err:.3g}; library: none")
+    rec["moonvit"] = moonvit_forward(device, g)
+    log(f"phase 15 ok: worst kernel-vs-plain error {rec['worst']} "
+        f"(bf16 ulps, or float32 relative)")
+    return rec
+
+
+def moonvit_forward(device, g) -> dict:
+    """Phase 15 (b): one eager forward of the published MoonViT at the
+    cell's batch, its kernel launches counted alone; then on the plain
+    versions."""
+    from videoprocessingframework_torch.models import kimi_vl_moonvit
+    from videoprocessingframework_torch.models import layers_cuda as lc
+
+    torch.manual_seed(15)
+    m = kimi_vl_moonvit().to(device).eval()
+    x = torch.randn(8, 896, 896, 3, device=device, generator=g)
+    with torch.no_grad():
+        lc.reset_launches()
+        got = m._forward(x)
+        torch.cuda.synchronize()
+        launches = dict(lc.LAUNCHES)
+        stats = {k: m.vision_stats[k]
+                 for k in ("norm_launches", "rope_launches")}
+        ms = cuda_ms(lambda: m._forward(x), warmup=1, reps=3)
+        takes = lc.takes_kernel
+        lc.takes_kernel = lambda *a: False  # every call on the plain chain
+        try:
+            want = m._forward(x)
+            plain_ms = cuda_ms(lambda: m._forward(x), warmup=1, reps=3)
+        finally:
+            lc.takes_kernel = takes
+    gap = float((got - want).abs().max() / want.abs().max())
+    log(f"(15b) kimi_vl_moonvit() 8 x 896²: launches {launches}, "
+        f"vision_stats {stats}; eager forward {ms:.2f} ms, on the plain "
+        f"versions {plain_ms:.2f} ms; output gap {gap:.3g} of the largest "
+        f"|value|")
+    require(launches == {"layer_norm": 56, "rope2d": 27}
+            and stats == {"norm_launches": 56, "rope_launches": 27},
+            f"MoonViT forward launched {launches} ({stats}), not 56 and 27")
+    require(bool(torch.isfinite(got).all()), "non-finite MoonViT output")
+    return {"launches": launches, "forward_ms": ms,
+            "plain_forward_ms": plain_ms, "output_gap": gap}
+
+
 # ---- main ----------------------------------------------------------------------
 
 
@@ -3283,6 +3474,17 @@ def main() -> int:
     rates = peak_rates(dev_info["kind"])
 
     missing = build_all()
+    from videoprocessingframework_torch.models import layers_cuda
+    layer_counts = {}  # path → its own LayerNorm and RoPE launches
+
+    def path(name, fn, *args):
+        """Run one phase's path with the model layer's launch counts set
+        to 0 before it, and keep that path's own counts."""
+        layers_cuda.reset_launches()
+        out = fn(*args)
+        layer_counts[name] = dict(layers_cuda.LAUNCHES)
+        return out
+
     worst_u8 = check_kernel(device)
     log(f"phase 3 ok: worst u8 kernel-vs-plain error {worst_u8:.0f}")
     times = time_kernel(device, rates)
@@ -3292,22 +3494,31 @@ def main() -> int:
                             (BATCH, 240, 320, SRC_H, SRC_W)):
         time_kernel(device, rates, b=b, h=h, w=w, oh=oh, ow=ow, others=False)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
-        run = main_path(device, missing, tmp)
-    conv = converter_path(device, rates)
+        run = path("5 main", main_path, device, missing, tmp)
+    conv = path("6 converter", converter_path, device, rates)
     time_kernel(device, rates, layout="nv12")  # phase 7
-    served = serving_path(device)
-    analysis_path(device)
+    served = path("8 serving", serving_path, device)
+    path("9 analysis", analysis_path, device)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
-        train = training_path(device, missing, tmp)
+        train = path("10 training", training_path, device, missing, tmp)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
-        xcode = transcode_path(device, rates, missing, tmp)
+        xcode = path("11 transcode", transcode_path, device, rates, missing,
+                     tmp)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
-        mjpeg = mjpeg_path(device, rates, missing, tmp)
+        mjpeg = path("12 mjpeg", mjpeg_path, device, rates, missing, tmp)
     with tempfile.TemporaryDirectory(dir=".") as tmp:
-        par = parallel_path(device, missing, tmp, times["normalized"]["ms"],
-                            train["plain"])
+        par = path("13 parallel", parallel_path, device, missing, tmp,
+                   times["normalized"]["ms"], train["plain"])
     with tempfile.TemporaryDirectory(dir=".") as tmp:
-        samples = samples_path(device, missing, tmp)
+        samples = path("14 samples", samples_path, device, missing, tmp)
+    log(f"LayerNorm and RoPE kernel launches by path (phases 5-14): "
+        f"{layer_counts}")
+    require(layer_counts["8 serving"]["layer_norm"] > 0,
+            "the served ViT-S and VideoViT-S launched no LayerNorm kernel")
+    require(all(c["rope2d"] == 0 for c in layer_counts.values()),
+            "a path with no MoonViT launched the RoPE kernel")
+    layers = model_layers_path(device, rates)
+    layer_counts["15b moonvit"] = layers["moonvit"]["launches"]
 
     t = times["normalized"]
     c = conv["times"]["nv12"]
@@ -3340,7 +3551,17 @@ def main() -> int:
         "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"],
         "library_ms": None,
-    }]}
+    }] + [{
+        "name": kind,
+        "route": "cuda",
+        "source": LAYERS_SOURCES[kind],
+        "replaces": None,
+        "launches": sum(c[kind] for c in layer_counts.values()),
+        "launches_by_path": {name: c[kind] for name, c in layer_counts.items()
+                             if c[kind]},
+        "max_err": layers["worst"][kind],
+        "at": layers[kind],
+    } for kind in ("layer_norm", "rope2d")]}
     log(f"total {time.perf_counter() - t_start:.1f} s on {dev_info['smi']}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

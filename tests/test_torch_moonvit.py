@@ -129,12 +129,15 @@ def test_vision_stats_count_grids_and_interpolations():
         model(_frames(1, 8, 8))
         assert model.vision_stats == {"patches": 64, "tokens": 16,
                                       "pos_interpolations": 0,
-                                      "attention_backend": None}
+                                      "attention_backend": None,
+                                      "norm_launches": 0,
+                                      "rope_launches": 0}
         model(_frames(1, 6, 10))
         model(_frames(1, 6, 10))
     assert model.vision_stats == {"patches": 60, "tokens": 15,
                                   "pos_interpolations": 2,
-                                  "attention_backend": None}
+                                  "attention_backend": None,
+                                  "norm_launches": 0, "rope_launches": 0}
 
 
 def test_input_check():
@@ -186,7 +189,9 @@ def cuda():
 @pytest.mark.cuda
 def test_replay_equals_eager_at_896(cuda):
     """The published model at the benchmark's batch of 8 and 896²: the
-    replays equal the eager forward, on a fused attention backend."""
+    replays equal the eager forward, on a fused attention backend; the
+    capture launched the LayerNorm kernel 56 times (2 a block, the final
+    norm, the projector's) and the RoPE kernel 27 times."""
     torch.manual_seed(0)
     m = tm.kimi_vl_moonvit().to(cuda).eval()
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -196,10 +201,13 @@ def test_replay_equals_eager_at_896(cuda):
         for x in xs[:EAGER_RUNS]:
             m(x)
         replayed = [m(x) for x in xs]
+        counted = (m.vision_stats["norm_launches"],
+                   m.vision_stats["rope_launches"])
         want = [m._forward(x) for x in xs]
     s = m.graph_stats
     assert s["captures"] == 1 and s["replays"] == 3
     assert s["eager"] == {"warmup": EAGER_RUNS}
+    assert counted == (56, 27)
     for got, w in zip(replayed, want):
         assert got.shape == (8, 1024, 2048) and got.dtype == torch.float32
         assert torch.equal(got, w)

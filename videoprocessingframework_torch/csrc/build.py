@@ -5,7 +5,7 @@ here, one nvcc per source, all started together, and links the objects
 into one shared library with a plain C interface, loaded with ctypes (no
 PyTorch headers, so a build takes seconds). The build runs at first use
 into the gitignored ``csrc/_build/``, keyed by a content hash of the
-sources and flags. A failed build raises; nothing falls back.
+sources, the ``*.cuh`` headers they include and the flags. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from ..utils.build_cache import cached_build
 _HERE = pathlib.Path(__file__).parent
 OUT_DIR = _HERE / "_build"
 SOURCES = sorted(_HERE.glob("*.cu"))
+HEADERS = sorted(_HERE.glob("*.cuh"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xcompiler", "-fvisibility=hidden"]
@@ -49,8 +50,8 @@ def build() -> pathlib.Path:
             [[compiler, ARCH, "-shared", *objs, "-o", str(out)]],
         ]
 
-    return cached_build(OUT_DIR, "libvpf_kernels", SOURCES, steps,
-                        key=" ".join(NVCC_FLAGS))
+    return cached_build(OUT_DIR, "libvpf_kernels", [*SOURCES, *HEADERS],
+                        steps, key=" ".join(NVCC_FLAGS))
 
 
 @functools.lru_cache(maxsize=1)
@@ -70,6 +71,12 @@ def load_kernels() -> C.CDLL:
     fn.restype = i
     fn.argtypes = [p, p, p, i, i, i, i, i64, i64, i64, i64, p, i,
                    C.POINTER(C.c_float), p]
+    fn = lib.vpf_layer_norm
+    fn.restype = i
+    fn.argtypes = [p, i, i64, p, i, p, p, i64, i, C.c_float, p]
+    fn = lib.vpf_rope2d
+    fn.restype = i
+    fn.argtypes = [p, i, i64, i64, i64, i64, p, p, i, i, i, i, i, p]
     lib.vpf_cuda_error_string.restype = C.c_char_p
     lib.vpf_cuda_error_string.argtypes = [i]
     return lib

@@ -19,12 +19,16 @@ Layer equations (pre-norm; LN is LayerNorm with ε 1e-5):
 
 RoPE2D works per head: head_dim/4 frequencies f_i = θ^(−4i/head_dim),
 θ = 10000; channel pairs (4i, 4i+1) turn by col·f_i and (4i+2, 4i+3) by
-row·f_i, as complex products in float32.
+row·f_i, as complex products in float32. A CUDA call that needs no
+gradient turns q and k in one kernel (:func:`.layers_cuda.rope2d`, read in
+place from the QKV output, float32 in registers, stored in bf16);
+:func:`rope2d` is the plain version, which every other call runs.
 
 Numerics: parameters are float32 and products run in ``dtype`` (bf16)
 through :class:`~.vit.Dense` and :class:`~.resnet.SameConv2d`; LayerNorm
-takes float32 statistics; the residual stream is in ``dtype``; RoPE is
-float32; the output is float32 (N, tokens, out_dim).
+takes float32 statistics (on CUDA in the kernel of :mod:`.layers_cuda`,
+as RoPE); the residual stream is in ``dtype``; RoPE is float32; the
+output is float32 (N, tokens, out_dim).
 
 Attention is ``F.scaled_dot_product_attention`` on (N, heads, L,
 head_dim) views. All frames of a call share one grid, so a batch is the
@@ -40,7 +44,11 @@ each block's SDPA call) and ``model.merge`` (merge and projector).
 :attr:`MoonViT.vision_stats` counts, on every call: ``patches`` and
 ``tokens`` a frame of the last call, ``pos_interpolations`` (calls whose
 grid is not the table's) and ``attention_backend`` (the SDPA backend the
-first CUDA call took).
+first CUDA call took); and, set by each eager call or capture (a replay
+runs the captured launches again), ``norm_launches`` and
+``rope_launches``, the LayerNorm and RoPE kernels that call launched
+(:func:`.layers_cuda.counting`, so not another thread's): 2·depth + 2 and
+depth on CUDA without gradients, 0 on the CPU.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ..utils.tracing import trace_range
+from . import layers_cuda
 from .graphed import GraphedModule
 from .resnet import SameConv2d
 from .vit import Dense, LayerNorm
@@ -86,6 +95,15 @@ def rope2d(t: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     return torch.view_as_real(z * freqs[:, None]).flatten(3).to(t.dtype)
 
 
+def rope_qk(qkv: torch.Tensor, freqs: torch.Tensor):
+    """(q, k) of the (N, L, 3, heads, head_dim) projection ``qkv``, each
+    (N, L, heads, head_dim) turned by ``freqs``: one kernel launch for a
+    CUDA call that needs no gradient, :func:`rope2d` on each otherwise."""
+    if layers_cuda.takes_kernel(qkv):
+        return layers_cuda.rope2d(qkv, freqs)
+    return rope2d(qkv[:, :, 0], freqs), rope2d(qkv[:, :, 1], freqs)
+
+
 def merge_patches(t: torch.Tensor, grid: Sequence[int],
                   merge: Sequence[int]) -> torch.Tensor:
     """(N, rows·cols, dim) row-major → (N, tokens, mh·mw, dim): each
@@ -114,8 +132,9 @@ class MoonViTBlock(nn.Module):
     def forward(self, x, freqs, attention):
         n, length, dim = x.shape
         qkv = self.wqkv(self.norm0(x)).view(n, length, 3, self.heads, -1)
-        q, k = (rope2d(qkv[:, :, i], freqs).transpose(1, 2) for i in (0, 1))
-        o = attention(q, k, qkv[:, :, 2].transpose(1, 2))
+        q, k = rope_qk(qkv, freqs)
+        o = attention(q.transpose(1, 2), k.transpose(1, 2),
+                      qkv[:, :, 2].transpose(1, 2))
         x = x + self.wo(o.transpose(1, 2).reshape(n, length, dim))
         y = F.gelu(self.fc0(self.norm1(x)), approximate="tanh")
         return x + self.fc1(y)
@@ -151,7 +170,8 @@ class MoonViT(GraphedModule):
         self.linear_2 = Dense(merged, out_dim, dtype)
         self.vision_stats = {"patches": 0, "tokens": 0,
                              "pos_interpolations": 0,
-                             "attention_backend": None}
+                             "attention_backend": None,
+                             "norm_launches": 0, "rope_launches": 0}
         self._backend = None  # the SDPA backend CUDA calls are pinned to
 
     def grid(self, shape: Sequence[int]) -> tuple:
@@ -177,6 +197,14 @@ class MoonViT(GraphedModule):
         return super().forward(x)
 
     def _forward(self, x):
+        with layers_cuda.counting() as launched:
+            out = self._encode(x)
+        s = self.vision_stats
+        s["norm_launches"] = launched["layer_norm"]
+        s["rope_launches"] = launched["rope2d"]
+        return out
+
+    def _encode(self, x):
         dt, grid = self.dtype, self.grid(x.shape)
         with trace_range("model.patch_embed"):
             t = self.patch_embed(x.to(dt).permute(0, 3, 1, 2))

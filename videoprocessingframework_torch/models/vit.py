@@ -5,7 +5,9 @@
 Numerics follow Flax, not torch's defaults:
 
 * LayerNorm has ε = 1e-6, takes its statistics in float32 and returns
-  float32 (the Flax blocks use ``LayerNorm(dtype=float32)``);
+  float32 (the Flax blocks use ``LayerNorm(dtype=float32)``); a CUDA call
+  that needs no gradient runs it as one kernel (``csrc/layer_norm.cu``,
+  :mod:`.layers_cuda`);
 * GELU is the tanh form (``nn.gelu``'s default);
 * attention (Flax ``MultiHeadDotProductAttention``): query, key and value
   projections to (heads, head_dim) with biases, the query divided by
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import layers_cuda
 from .graphed import GraphedModule
 from .resnet import Float32Linear, SameConv2d
 
@@ -49,13 +52,24 @@ class Dense(nn.Linear):
 
 class LayerNorm(nn.LayerNorm):
     """Flax ``nn.LayerNorm(dtype=float32)``: ε = 1e-6 unless ``eps``,
-    input, scale and bias in float32, the result in ``out_dtype``."""
+    input, scale and bias in float32, the result in ``out_dtype``.
+
+    A CUDA call that needs no gradient launches the LayerNorm kernel
+    (:func:`.layers_cuda.layer_norm`: the input read in its own dtype,
+    float32 statistics in registers, one store in ``out_dtype``; any
+    width, float32, bfloat16, float16 or float64 in and out), or raises
+    on another dtype. Every other call runs the plain version below, the
+    differentiable float32 chain: the CPU's, and the training steps'
+    (``parallel/train.py``, ``sample_train_video``)."""
 
     def __init__(self, dim: int, out_dtype=torch.float32, eps: float = 1e-6):
         super().__init__(dim, eps=eps)
         self.out_dtype = out_dtype
 
     def forward(self, x):
+        if layers_cuda.takes_kernel(x, self.weight, self.bias):
+            return layers_cuda.layer_norm(x, self.weight, self.bias,
+                                          self.eps, self.out_dtype)
         return F.layer_norm(x.float(), self.normalized_shape,
                             self.weight.float(), self.bias.float(),
                             self.eps).to(self.out_dtype)
