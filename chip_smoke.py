@@ -165,8 +165,8 @@ Phases, each of which raises on failure:
    LayerNorm beside ``F.layer_norm`` on bf16 rows where that one call
    computes the same function. (b) The published MoonViT
    (``kimi_vl_moonvit()``) at the cell's 8 frames of 896², one eager
-   forward with the counts set to 0 just before it: 56 LayerNorm and 27
-   RoPE launches, in ``LAUNCHES`` and in ``vision_stats``; then the same
+   forward, counted alone: 56 LayerNorm and 27 RoPE launches, in
+   ``csrc/launch.py``'s ``LAUNCHES`` and in ``vision_stats``; then the same
    forward on the plain versions, its output's largest gap from the
    kernels' and both forwards' CUDA-event times.
 
@@ -174,8 +174,8 @@ The line before the last is the per-kernel JSON record (launches of
 fused_resize_csc counted over phases 5, 8, 10 (a), 11a, 11c, 12, 13 and
 14 (a)-(c), of csc_rgb_planar over phases 6 and 11b; of layer_norm and
 rope2d counted a path at a time, each path's own count under
-``launches_by_path``: the models of phases 5-14, set to 0 before each
-path, and 15 (b)); the last line is ``{"ok": true, "device": {...}}``.
+``launches_by_path``: the models of phases 5-14, what the count gained
+over each path, and 15 (b)); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -707,6 +707,7 @@ def main_path(device, libav_missing: str, tmpdir: str) -> dict:
         ColorSpace,
         PixelFormat,
     )
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.io import (
         HostBatchRing,
         NativeDecodePool,
@@ -775,9 +776,9 @@ def main_path(device, libav_missing: str, tmpdir: str) -> dict:
         for name, (postproc, consume) in stages.items():
             run(postproc, consume, 3)  # warm-up: allocations, cuDNN plans
             logits_seen.clear()
-            fc.reset_launches()
+            counted = launch.LAUNCHES["fused_resize_csc"]
             fps, st = run(postproc, consume, n_batches)
-            launches = fc.LAUNCHES["fused_resize_csc"]
+            launches = launch.LAUNCHES["fused_resize_csc"] - counted
             log(f"{src}->{name} fps: {fps:.1f} over {n_batches} batches of "
                 f"{BATCH} (per batch ms: {st}); fused_resize_csc launches "
                 f"in this run: {launches}")
@@ -899,11 +900,11 @@ def converter_per_frame(device) -> None:
         Surface,
         SurfaceConverter,
     )
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.interop import (
         FrameUploader,
         SurfaceDownloader,
     )
-    from videoprocessingframework_torch.ops import csc_cuda as cc
     from videoprocessingframework_torch.ops import golden
 
     fmt, w, h = PixelFormat.NV12, SRC_W, SRC_H
@@ -915,12 +916,12 @@ def converter_per_frame(device) -> None:
     ctx = ColorspaceConversionContext(ColorSpace.BT_709, ColorRange.MPEG)
     down(conv.Execute(up(frame), ctx))  # warm-up
     n = 30
-    cc.reset_launches()
+    counted = launch.LAUNCHES["csc_rgb_planar"]
     t0 = time.perf_counter()
     for _ in range(n):
         out = down(conv.Execute(up(frame), ctx))
     fps = n / (time.perf_counter() - t0)
-    launches = cc.LAUNCHES["csc_rgb_planar"]
+    launches = launch.LAUNCHES["csc_rgb_planar"] - counted
     require(launches == n, f"per-frame path: {launches} launches for {n}")
     host = Surface.from_host_frame(frame, fmt, w, h)
     gold = np.moveaxis(golden.nv12_to_rgb(*host.planes, ColorSpace.BT_709,
@@ -944,6 +945,7 @@ def converter_batched(device, fmt_name: str, n_batches: int = 48) -> dict:
         Surface,
         SurfaceConverter,
     )
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.interop import (
         DoubleBufferedUploader,
         surface_to_torch,
@@ -996,9 +998,9 @@ def converter_batched(device, fmt_name: str, n_batches: int = 48) -> dict:
 
     run(3)  # warm-up: pinned staging, allocations
     first.clear()
-    cc.reset_launches()
+    counted = launch.LAUNCHES["csc_rgb_planar"]
     fps = run(n_batches)
-    launches = cc.LAUNCHES["csc_rgb_planar"]
+    launches = launch.LAUNCHES["csc_rgb_planar"] - counted
     want = plain(*first["planes"], space=space, rng=ColorRange.MPEG)
     err = (first["out"].view(b, 3, h, w).int() - want.int()).abs().max()
     err = int(err.item())
@@ -1063,7 +1065,7 @@ def converter_path(device, rates) -> dict:
 def _serve(name, srv, items, clients, out_shape) -> dict:
     """``clients`` threads submit their share of ``items`` (all at once,
     then wait); the kernel's launches are counted over this run alone."""
-    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.csrc import launch
 
     results = [None] * len(items)
     errors = []
@@ -1082,14 +1084,14 @@ def _serve(name, srv, items, clients, out_shape) -> dict:
                                       min(len(items), (k + 1) * share)))
                for k in range(clients)]
     torch.cuda.synchronize()
-    fc.reset_launches()
+    counted = launch.LAUNCHES["fused_resize_csc"]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
-    launches = fc.LAUNCHES["fused_resize_csc"]
+    launches = launch.LAUNCHES["fused_resize_csc"] - counted
     require(not errors, f"{name}: {errors[:1]}")
     require(not any(t.is_alive() for t in threads), f"{name}: client hung")
     snap = srv.snapshot()
@@ -1665,6 +1667,7 @@ def train_plain(device, make_loader) -> dict:
     (attention head, bf16 compute, float32 params), SGD 0.01 momentum
     0.9."""
     from videoprocessingframework_torch.core.enums import PixelFormat
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.models import video_resnet50
     from videoprocessingframework_torch.ops import fused_cuda as fc
     from videoprocessingframework_torch.ops.fused import unpack_yuv_planes
@@ -1678,10 +1681,10 @@ def train_plain(device, make_loader) -> dict:
     step = make_train_step(model, torch.optim.SGD(
         model.parameters(), lr=0.01, momentum=0.9))
     torch.cuda.reset_peak_memory_stats()
-    fc.reset_launches()
+    counted = launch.LAUNCHES["fused_resize_csc"]
     losses, first, wall = _fed_loop(loader, step, PLAIN_STEPS,
                                     lambda x, labels, i: (x, labels))
-    launches = fc.LAUNCHES["fused_resize_csc"]
+    launches = launch.LAUNCHES["fused_resize_csc"] - counted
     log(f"(a) loader -> fused_resize_csc -> video-ResNet-50 train step: "
         f"fused_resize_csc launches in this run: {launches}")
     require(launches >= PLAIN_STEPS,
@@ -1879,8 +1882,8 @@ def device_transcode(device, rates, libav_missing: str, tmpdir: str) -> dict:
         ColorSpace,
         PixelFormat,
     )
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.io import HostBatchRing
-    from videoprocessingframework_torch.ops import fused_cuda as fc
     from videoprocessingframework_torch.ops.fused import (
         FusedPipeline,
         encode_feed,
@@ -1914,7 +1917,7 @@ def device_transcode(device, rates, libav_missing: str, tmpdir: str) -> dict:
                               oh, fps=30)
         first = {}
         frames = packets = 0
-        fc.reset_launches()
+        counted = launch.LAUNCHES["fused_resize_csc"]
         ring.rewind(XC_BATCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1936,7 +1939,7 @@ def device_transcode(device, rates, libav_missing: str, tmpdir: str) -> dict:
                 packets += 1
             mux.close()
         fps = frames / (time.perf_counter() - t0)
-        launches = fc.LAUNCHES["fused_resize_csc"]
+        launches = launch.LAUNCHES["fused_resize_csc"] - counted
         rec["launches"] += launches
         require(frames == XC_BATCH * XC_BATCHES, f"{frames} frames")
         require(launches >= XC_BATCHES,
@@ -1987,7 +1990,7 @@ def compat_chain(device) -> dict:
     GpuMem() addresses."""
     import videoprocessingframework_torch.compat as nvc
     from videoprocessingframework_torch.core.surface import Surface
-    from videoprocessingframework_torch.ops import csc_cuda as cc
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.ops import golden
     from videoprocessingframework_torch.ops.resize import SurfaceResizer
 
@@ -1998,7 +2001,7 @@ def compat_chain(device) -> dict:
     w, h, s = SRC_W, SRC_H, XC_SMALL
     frame = np.random.default_rng(12).integers(0, 256, w * h * 3 // 2,
                                                np.uint8)
-    cc.reset_launches()
+    counted = launch.LAUNCHES["csc_rgb_planar"]
     surf = nvc.PyFrameUploader(w, h, P.NV12, gpu).UploadSingleFrame(frame)
     ctx = nvc.ColorspaceConversionContext(nvc.ColorSpace.BT_709,
                                           nvc.ColorRange.MPEG)
@@ -2012,7 +2015,7 @@ def compat_chain(device) -> dict:
     require(nvc.PySurfaceDownloader(w, h, P.RGB_PLANAR,
                                     gpu).DownloadSingleSurface(rgb, full),
             "compat download at 1080p")
-    launches = cc.LAUNCHES["csc_rgb_planar"]
+    launches = launch.LAUNCHES["csc_rgb_planar"] - counted
     host = Surface.from_host_frame(frame, P.NV12, w, h)
     gold = np.moveaxis(golden.nv12_to_rgb(*host.planes, nvc.ColorSpace.BT_709,
                                           nvc.ColorRange.MPEG), -1, 0)
@@ -2060,22 +2063,22 @@ def libav_paths(device, libav_missing: str, tmpdir: str) -> dict:
         ColorSpace,
         PixelFormat,
     )
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.io import Transcoder
     from videoprocessingframework_torch.io.encoder import make_clip
-    from videoprocessingframework_torch.ops import fused_cuda as fc
     from videoprocessingframework_torch.ops.fused import FusedPipeline
     from videoprocessingframework_torch.parallel import MultiStreamPipeline
 
     gpu = 0 if device.type == "cuda" else "cpu"  # "cpu" for a rehearsal
     w, h, nf = 640, 360, 32
     clip = str(make_clip(f"{tmpdir}/streams.h264", w, h, nf))
-    fc.reset_launches()
+    counted = launch.LAUNCHES["fused_resize_csc"]
     pipe = MultiStreamPipeline(
         [clip, clip], batch_size=8, device=device,
         postproc=FusedPipeline(PixelFormat.NV12, ColorSpace.BT_709,
                                ColorRange.MPEG, (OUT, OUT), device=device))
     frames = sum(b.shape[0] for b in pipe.batches())
-    launches = fc.LAUNCHES["fused_resize_csc"]
+    launches = launch.LAUNCHES["fused_resize_csc"] - counted
     log(f"MultiStreamPipeline: 2 streams of {nf} {w}x{h} frames, "
         f"{frames} frames at {pipe.stats.fps:.1f} fps, fused_resize_csc "
         f"(NV12) launches {launches}")
@@ -2219,11 +2222,11 @@ def _small_route(device, sampling, seed) -> None:
     """A small 4:2:2 or gray stream: device encode → host encode → host
     decode → JpegDevicePipeline(rgb_u8) on the card vs the CPU; the band
     kernel must not launch (FusedPipeline's gate takes 4:2:0 only)."""
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.io.jpeg import (
         JpegCoefDecoder,
         JpegCoefEncoder,
     )
-    from videoprocessingframework_torch.ops import fused_cuda as fc
     from videoprocessingframework_torch.ops.jpeg import (
         JpegDeviceEncoder,
         JpegDevicePipeline,
@@ -2241,9 +2244,9 @@ def _small_route(device, sampling, seed) -> None:
     dec = JpegCoefDecoder()
     coeffs = dec.decode_batch(coder.encode_batch(*enc.encode_planes(*planes)))
     kw = dict(out_size=(MJ_SMALL_OUT, MJ_SMALL_OUT), output="rgb_u8")
-    before = fc.LAUNCHES["fused_resize_csc"]
+    before = launch.LAUNCHES["fused_resize_csc"]
     got = JpegDevicePipeline(dec.info, device=device, **kw)(*coeffs)
-    launched = fc.LAUNCHES["fused_resize_csc"] - before
+    launched = launch.LAUNCHES["fused_resize_csc"] - before
     cpu = JpegDevicePipeline(dec.info, device="cpu", **kw)(*coeffs)
     e, share = _diff(got.cpu().numpy(), cpu.numpy())
     line = (f"mjpeg {sampling} {h}x{w}->{MJ_SMALL_OUT}² b{b}: route torch "
@@ -2277,20 +2280,20 @@ def _mjpeg_libav_paths(device, libav_missing, tmpdir, rgb) -> int:
             log(f"{name}: did not run: libav development files are absent "
                 f"({libav_missing}); it demuxes through FFmpegDemuxer")
         return 0
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.data import MjpegClipLoader
     from videoprocessingframework_torch.io import (
         MjpegReader,
         MjpegTranscoder,
         MjpegWriter,
     )
-    from videoprocessingframework_torch.ops import fused_cuda as fc
 
     n = rgb.shape[0]
     path = f"{tmpdir}/clip.avi"
     with MjpegWriter(path, SRC_W, SRC_H, quality=MJ_QUALITY,
                      container="avi", device=device) as wr:
         wr.write_rgb(rgb)
-    before = fc.LAUNCHES["fused_resize_csc"]
+    before = launch.LAUNCHES["fused_resize_csc"]
     rd = MjpegReader(path, out_size=(OUT, OUT), output="normalized",
                      batch=4, device=device)
     frames = sum(b.shape[0] for b in rd.batches())
@@ -2299,7 +2302,7 @@ def _mjpeg_libav_paths(device, libav_missing, tmpdir, rgb) -> int:
     ld = MjpegClipLoader(path, clip_len=2, batch_size=2, out_size=(OUT, OUT),
                          device=device)
     clips = sum(b.shape[0] for b in ld.epoch(0))
-    launches = fc.LAUNCHES["fused_resize_csc"] - before
+    launches = launch.LAUNCHES["fused_resize_csc"] - before
     log(f"MjpegReader: {frames} frames; MjpegTranscoder: {st.frames} frames, "
         f"{st.out_bytes} B, {st.fps:.1f} fps; MjpegClipLoader: {clips} clips;"
         f" fused_resize_csc launches {launches}")
@@ -2316,6 +2319,7 @@ def mjpeg_path(device, rates, libav_missing: str, tmpdir: str) -> dict:
         ColorSpace,
         PixelFormat,
     )
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.io.jpeg import (
         JpegCoefDecoder,
         JpegCoefEncoder,
@@ -2343,7 +2347,7 @@ def mjpeg_path(device, rates, libav_missing: str, tmpdir: str) -> dict:
     b, h, w = MJ_BATCH, SRC_H, SRC_W
     space, rng = ColorSpace.BT_601, ColorRange.JPEG
     rgb = _textured_rgb(b, h, w, 12, device)
-    fc.reset_launches()
+    counted = launch.LAUNCHES["fused_resize_csc"]
 
     # (a) device encode, then host encode
     enc = JpegDeviceEncoder(h, w, quality=MJ_QUALITY, subsampled="420",
@@ -2401,9 +2405,9 @@ def mjpeg_path(device, rates, libav_missing: str, tmpdir: str) -> dict:
     for out in ("normalized", "rgb_u8"):
         pipe = JpegDevicePipeline(info, out_size=(OUT, OUT), output=out,
                                   device=device)
-        before = fc.LAUNCHES["fused_resize_csc"]
+        before = launch.LAUNCHES["fused_resize_csc"]
         got = pipe(*back)
-        launched = fc.LAUNCHES["fused_resize_csc"] - before
+        launched = launch.LAUNCHES["fused_resize_csc"] - before
         plain = FusedPipeline(PixelFormat.YUV420, space, rng, (OUT, OUT),
                               output=out, kernel="torch", compute="highest",
                               device=device)(*planes)
@@ -2483,7 +2487,7 @@ def mjpeg_path(device, rates, libav_missing: str, tmpdir: str) -> dict:
         out = pipe(*(np.stack([f[c] for f in frames]) for c in range(3)))
         torch.cuda.synchronize()
     dec_fps = MJ_REPS * b / (time.perf_counter() - t0)
-    launches = fc.LAUNCHES["fused_resize_csc"]
+    launches = launch.LAUNCHES["fused_resize_csc"] - counted
     require(bool(torch.isfinite(out).all()), "chain output")
     t0 = time.perf_counter()
     for _ in range(MJ_REPS):
@@ -2559,8 +2563,8 @@ def _sharded_pipe(device, mesh, what, n_batches, run_one):
     """``run_one(planes) -> local output`` over ``n_batches`` seeded 1080p
     batches of BATCH from HostBatchRing; returns (launches, host ms a
     batch, first planes, first output)."""
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.io import HostBatchRing
-    from videoprocessingframework_torch.ops import fused_cuda as fc
 
     ring = HostBatchRing(SRC_W, SRC_H, BATCH, 3, n_buffers=3, seed=1,
                          device=device)
@@ -2569,7 +2573,7 @@ def _sharded_pipe(device, mesh, what, n_batches, run_one):
         ring.release()
     ring.rewind(n_batches)
     first = {}
-    fc.reset_launches()
+    counted = launch.LAUNCHES["fused_resize_csc"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for planes in iter(ring.acquire_planes, None):
@@ -2580,7 +2584,7 @@ def _sharded_pipe(device, mesh, what, n_batches, run_one):
             first.update(planes=planes, out=out)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / n_batches
-    launches = fc.LAUNCHES["fused_resize_csc"]
+    launches = launch.LAUNCHES["fused_resize_csc"] - counted
     log(f"{what}: {n_batches} batches of {BATCH} {SRC_W}x{SRC_H} -> "
         f"{OUT}x{OUT} normalized, {ms:.2f} ms a batch (host clock, upload "
         f"included); fused_resize_csc launches in this run: {launches}")
@@ -2711,8 +2715,8 @@ def _mesh_step_vs_single(device, mesh, n_images, label):
 def sharded_trainer(device, mesh, make_loader, plain) -> dict:
     """13 (c): phase 10 (a)'s trainer as the dp × tp step on the mesh, fed
     by the loader with sharding=; then the float32 step check."""
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.models import video_resnet50
-    from videoprocessingframework_torch.ops import fused_cuda as fc
     from videoprocessingframework_torch.parallel import make_train_step
     from videoprocessingframework_torch.parallel.mesh import batch_sharding
 
@@ -2724,10 +2728,10 @@ def sharded_trainer(device, mesh, make_loader, plain) -> dict:
     step = make_train_step(model, torch.optim.SGD(
         model.parameters(), lr=0.01, momentum=0.9), mesh)
     torch.cuda.reset_peak_memory_stats()
-    fc.reset_launches()
+    counted = launch.LAUNCHES["fused_resize_csc"]
     losses, first, wall = _fed_loop(loader, step, PLAIN_STEPS,
                                     lambda x, labels, i: (x, labels))
-    launches = fc.LAUNCHES["fused_resize_csc"]
+    launches = launch.LAUNCHES["fused_resize_csc"] - counted
     log(f"(13c) sharded loader -> fused_resize_csc -> video-ResNet-50 dp x tp "
         f"step on mesh {tuple(mesh.shape)}: fused_resize_csc launches in "
         f"this run: {launches}")
@@ -2766,8 +2770,8 @@ def multi_device_paths(device, mesh, libav_missing, tmpdir) -> int:
         ColorSpace,
         PixelFormat,
     )
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.io.encoder import make_clip
-    from videoprocessingframework_torch.ops import fused_cuda as fc
     from videoprocessingframework_torch.ops.fused import FusedPipeline
     from videoprocessingframework_torch.parallel import (
         MultiDeviceStreamPipeline,
@@ -2785,14 +2789,14 @@ def multi_device_paths(device, mesh, libav_missing, tmpdir) -> int:
                 [clip], post, batch_size=BATCH, devices=[device])),
             ("MultiHostVideoPipeline", lambda: MultiHostVideoPipeline(
                 [clip], post, mesh=mesh, batch_size_per_host=BATCH))):
-        fc.reset_launches()
+        counted = launch.LAUNCHES["fused_resize_csc"]
         pipe = make()
         t0 = time.perf_counter()
         n = sum(o.shape[0] for o in pipe.batches())
         torch.cuda.synchronize()
         fps = n / (time.perf_counter() - t0)
         pipe.close()
-        launches = fc.LAUNCHES["fused_resize_csc"]
+        launches = launch.LAUNCHES["fused_resize_csc"] - counted
         total += launches
         log(f"(13d) {name}: {n} of {frames} decoded frames, {fps:.1f} "
             f"frames/s (host clock); fused_resize_csc launches: {launches}")
@@ -2958,13 +2962,13 @@ def _nv12_batches(n, seed):
 
 
 def _launched(fn):
-    """(fn's result, fused_resize_csc launches during it): the counts
-    set to 0 just before ``fn`` and read just after."""
-    from videoprocessingframework_torch.ops import fused_cuda as fc
+    """(fn's result, fused_resize_csc launches during it): what the
+    count gained from just before ``fn`` to just after."""
+    from videoprocessingframework_torch.csrc import launch
 
-    fc.reset_launches()
+    counted = launch.LAUNCHES["fused_resize_csc"]
     out = fn()
-    return out, fc.LAUNCHES["fused_resize_csc"]
+    return out, launch.LAUNCHES["fused_resize_csc"] - counted
 
 
 def sample_resnet_path(device) -> dict:
@@ -3425,6 +3429,7 @@ def moonvit_forward(device, g) -> dict:
     """Phase 15 (b): one eager forward of the published MoonViT at the
     cell's batch, its kernel launches counted alone; then on the plain
     versions."""
+    from videoprocessingframework_torch.csrc import launch
     from videoprocessingframework_torch.models import kimi_vl_moonvit
     from videoprocessingframework_torch.models import layers_cuda as lc
 
@@ -3432,10 +3437,11 @@ def moonvit_forward(device, g) -> dict:
     m = kimi_vl_moonvit().to(device).eval()
     x = torch.randn(8, 896, 896, 3, device=device, generator=g)
     with torch.no_grad():
-        lc.reset_launches()
+        counted = dict(launch.LAUNCHES)
         got = m._forward(x)
         torch.cuda.synchronize()
-        launches = dict(lc.LAUNCHES)
+        launches = {k: launch.LAUNCHES[k] - counted[k]
+                    for k in ("layer_norm", "rope2d")}
         stats = {k: m.vision_stats[k]
                  for k in ("norm_launches", "rope_launches")}
         ms = cuda_ms(lambda: m._forward(x), warmup=1, reps=3)
@@ -3474,15 +3480,16 @@ def main() -> int:
     rates = peak_rates(dev_info["kind"])
 
     missing = build_all()
-    from videoprocessingframework_torch.models import layers_cuda
+    from videoprocessingframework_torch.csrc import launch
     layer_counts = {}  # path → its own LayerNorm and RoPE launches
 
     def path(name, fn, *args):
-        """Run one phase's path with the model layer's launch counts set
-        to 0 before it, and keep that path's own counts."""
-        layers_cuda.reset_launches()
+        """Run one phase's path and keep that path's own launch counts
+        (what ``LAUNCHES`` gained over it)."""
+        counted = dict(launch.LAUNCHES)
         out = fn(*args)
-        layer_counts[name] = dict(layers_cuda.LAUNCHES)
+        layer_counts[name] = {k: n - counted[k]
+                              for k, n in launch.LAUNCHES.items()}
         return out
 
     worst_u8 = check_kernel(device)

@@ -33,8 +33,9 @@ from videoprocessingframework_torch.core.packet import (
     ColorspaceConversionContext,
 )
 from videoprocessingframework_torch.core.surface import Surface
+from videoprocessingframework_torch.csrc import launch
 from videoprocessingframework_torch.ops import colorspace as cs
-from videoprocessingframework_torch.ops import convert, csc_cuda, golden
+from videoprocessingframework_torch.ops import convert, golden
 from videoprocessingframework_torch.ops.convert import (
     FIXED_ROUNDINGS,
     SurfaceConverter,
@@ -186,9 +187,9 @@ def test_rgb_planar_pairs_untiled_size(src, h, w):
     the CPU) and matches the JAX package and the golden."""
     combo = (CS.BT_601, CR.JPEG)
     planes = _planes(src, w, h, seed=h)
-    csc_cuda.reset_launches()
+    launch.reset_launches()
     got = _port_run(src, F.RGB_PLANAR, planes, combo, w, h)
-    assert csc_cuda.LAUNCHES["csc_rgb_planar"] == 0  # CPU: plain version
+    assert launch.LAUNCHES["csc_rgb_planar"] == 0  # CPU: plain version
     want = _jax_run(src, F.RGB_PLANAR, planes, combo, w, h)
     assert got[0].shape == (3 * h, w)
     assert np.abs(got[0].astype(int) - want[0].astype(int)).max() <= 1

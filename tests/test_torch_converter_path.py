@@ -35,13 +35,14 @@ from videoprocessingframework_torch import (
     SurfaceConverter,
 )
 from videoprocessingframework_torch.core import geometry
+from videoprocessingframework_torch.csrc import launch
 from videoprocessingframework_torch.interop import (
     DoubleBufferedUploader,
     FrameUploader,
     SurfaceDownloader,
     surface_to_torch,
 )
-from videoprocessingframework_torch.ops import csc_cuda, golden
+from videoprocessingframework_torch.ops import golden
 
 F = PixelFormat
 W, H, N = 128, 64, 4
@@ -112,10 +113,10 @@ def test_batched_path_matches_jax(fmt, space, rng):
         outs += [convert(got) for got in uploader.drain()]
         return outs
 
-    csc_cuda.reset_launches()
+    launch.reset_launches()
     got = run(DoubleBufferedUploader(device="cpu", depth=2),
               lambda p: conv.run_planes(p, cc)[0])
-    assert csc_cuda.LAUNCHES["csc_rgb_planar"] == 0  # CPU: plain version
+    assert launch.LAUNCHES["csc_rgb_planar"] == 0  # CPU: plain version
     want = run(jtransfer.DoubleBufferedUploader(depth=2),
                lambda p: np.asarray(jconv.run_planes(p, jcc)[0]))
     assert len(got) == len(want) == len(batches)

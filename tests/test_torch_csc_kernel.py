@@ -26,6 +26,7 @@ from videoprocessingframework_tpu.ops.pallas_kernels import (
     yuv420_to_rgb_planar_pallas,
 )
 from videoprocessingframework_torch.core.enums import ColorRange, ColorSpace
+from videoprocessingframework_torch.csrc import launch
 from videoprocessingframework_torch.ops import csc_cuda, golden
 
 CS, CR = ColorSpace, ColorRange
@@ -160,10 +161,10 @@ def test_cpu_tensors_take_the_plain_version():
     """The wrapper takes its plain version because the tensors lie on the
     CPU; no launch is counted."""
     y, _, _, uv = _t(*_yuv(1, 8, 16, seed=2))
-    csc_cuda.reset_launches()
+    launch.reset_launches()
     got = csc_cuda.nv12_to_rgb_planar(y, uv)
     assert torch.equal(got, csc_cuda.nv12_to_rgb_planar_ref(y, uv))
-    assert csc_cuda.LAUNCHES["csc_rgb_planar"] == 0
+    assert launch.LAUNCHES["csc_rgb_planar"] == 0
 
 
 @pytest.mark.cuda
@@ -176,9 +177,9 @@ def test_kernel_equals_plain_on_card(b, h, w):
     for space, rng in COMBOS:
         for swap in (False, True):
             kw = dict(space=space, rng=rng, swap=swap)
-            before = csc_cuda.LAUNCHES["csc_rgb_planar"]
+            before = launch.LAUNCHES["csc_rgb_planar"]
             got = csc_cuda.nv12_to_rgb_planar(y, uv, **kw)
-            assert csc_cuda.LAUNCHES["csc_rgb_planar"] == before + 1
+            assert launch.LAUNCHES["csc_rgb_planar"] == before + 1
             assert torch.equal(got, csc_cuda.nv12_to_rgb_planar_ref(y, uv,
                                                                    **kw))
             got = csc_cuda.yuv420_to_rgb_planar(y, u, v, **kw)

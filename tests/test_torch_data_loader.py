@@ -485,14 +485,14 @@ def test_loader_cuda_matches_cpu():
     card's machine has no libav)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from videoprocessingframework_torch.ops import fused_cuda
+    from videoprocessingframework_torch.csrc import launch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(n_streams=2, frames_per_stream=12, clip_len=4, batch_size=2,
               out_size=(64, 64), seed=3, output="normalized")
-    fused_cuda.reset_launches()
+    launch.reset_launches()
     got = [b.cpu() for b in HostClipLoader(240, 320, **kw).epoch(0)]
-    assert fused_cuda.LAUNCHES["fused_resize_csc"] == len(got) > 0
+    assert launch.LAUNCHES["fused_resize_csc"] == len(got) > 0
     want = list(HostClipLoader(240, 320, device="cpu", **kw).epoch(0))
     for x, y in zip(got, want):
         assert (x - y).abs().max().item() <= 1e-4

@@ -279,7 +279,7 @@ def test_loader_cuda_matches_cpu(tmp_path):
 
     if libav_missing():
         pytest.skip(f"the loader demuxes through libav: {libav_missing()}")
-    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.csrc import launch
 
     avi = _mk_avi(tmp_path / "a.avi")
     kw = dict(clip_len=2, batch_size=4, output="planes", seed=2, workers=2)
@@ -287,7 +287,7 @@ def test_loader_cuda_matches_cpu(tmp_path):
                          MjpegClipLoader(avi, **kw, **CPU).epoch(0)):
         for g, w in zip(got, want):
             assert g.is_cuda and _maxdiff(g.cpu(), w) <= 1
-    fc.reset_launches()
+    launch.reset_launches()
     batches = list(MjpegClipLoader(avi, **{**kw, "output": "rgb_u8"},
                                    out_size=(32, 32)).epoch(0))
-    assert fc.LAUNCHES["fused_resize_csc"] == len(batches) > 0
+    assert launch.LAUNCHES["fused_resize_csc"] == len(batches) > 0

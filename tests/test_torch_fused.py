@@ -30,6 +30,7 @@ from videoprocessingframework_torch.core.enums import (
     ColorSpace,
     PixelFormat,
 )
+from videoprocessingframework_torch.csrc import launch
 from videoprocessingframework_torch.ops import colorspace as cspace
 from videoprocessingframework_torch.ops import fused_cuda
 from videoprocessingframework_torch.ops.fused import (
@@ -277,12 +278,12 @@ def test_normalize_matches_jax(channels_first):
 
 def test_fused_pipeline_cpu_picks_torch_path():
     pf, (y, u, v) = _planes("yuv420", n=2, h=64, w=96)
-    fused_cuda.reset_launches()
+    launch.reset_launches()
     pipe = FusedPipeline(pf, ColorSpace.BT_709, ColorRange.MPEG, (40, 24),
                          output="normalized", device="cpu")
     out = pipe(y, u, v)
     assert out.device.type == "cpu" and out.shape == (2, 24, 40, 3)
-    assert fused_cuda.LAUNCHES["fused_resize_csc"] == 0
+    assert launch.LAUNCHES["fused_resize_csc"] == 0
     want = decode_postproc(
         *map(torch.from_numpy, (y, u, v)), src_format=pf,
         space=ColorSpace.BT_709, rng=ColorRange.MPEG, out_h=24, out_w=40,
@@ -361,9 +362,9 @@ def test_fused_pipeline_cuda_layouts_on_card(fmt):
                              (45, 61), kernel="cuda", **kw)
         ref = FusedPipeline(pf, ColorSpace.BT_709, ColorRange.MPEG,
                             (45, 61), kernel="torch", **kw)
-        before = fused_cuda.LAUNCHES["fused_resize_csc"]
+        before = launch.LAUNCHES["fused_resize_csc"]
         got = cuda(*planes)
-        assert fused_cuda.LAUNCHES["fused_resize_csc"] == before + 1
+        assert launch.LAUNCHES["fused_resize_csc"] == before + 1
         want = ref(*planes)
         assert got.shape == want.shape and got.dtype == want.dtype
         err = (got.float() - want.float()).abs().max().item()

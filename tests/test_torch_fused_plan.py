@@ -30,6 +30,7 @@ from videoprocessingframework_tpu.ops.pallas_fused import (
     fused_yuv420_resize_rgb_pallas,
 )
 from videoprocessingframework_torch.core.enums import ColorRange, ColorSpace
+from videoprocessingframework_torch.csrc import launch
 from videoprocessingframework_torch.ops import fused_cuda as fc
 
 # kernel vs plain tolerances (chip_smoke.py TOL): u8 may flip one code at a
@@ -458,7 +459,7 @@ def test_refused_launch_raises_on_card(monkeypatch):
     plan = fc.band_plan(64, 96, 16, 24, "lanczos", 1, 16, 16)
     big = dataclasses.replace(plan, smem=fc.SMEM_MAX + 1024)
     monkeypatch.setattr(fc, "band_plan", lambda *a, **k: big)
-    before = fc.LAUNCHES["fused_resize_csc"]
+    before = launch.LAUNCHES["fused_resize_csc"]
     with pytest.raises(RuntimeError, match="fused_resize_csc"):
         fc.fused_yuv420_resize_rgb(y, u, v, out_h=16, out_w=24)
-    assert fc.LAUNCHES["fused_resize_csc"] == before
+    assert launch.LAUNCHES["fused_resize_csc"] == before

@@ -301,7 +301,7 @@ def test_cuda_pipeline_and_encoder_match_cpu():
     refused, and the 4:2:0 fused route through the band kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from videoprocessingframework_torch.ops import fused_cuda as fc
+    from videoprocessingframework_torch.csrc import launch
 
     (y, u, v), = _frames(1)
     planes = [np.stack([p] * N) for p in (y, u, v)]
@@ -324,10 +324,10 @@ def test_cuda_pipeline_and_encoder_match_cpu():
             J.JpegDevicePipeline(info, output="planes")(cy, cu, cv)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    fc.reset_launches()
+    launch.reset_launches()
     out = J.JpegDevicePipeline(info, out_size=(112, 112), output="rgb_u8")(
         cy, cu, cv)
-    assert fc.LAUNCHES["fused_resize_csc"] == 1
+    assert launch.LAUNCHES["fused_resize_csc"] == 1
     ref = J.JpegDevicePipeline(info, out_size=(112, 112), output="rgb_u8",
                                **CPU)(cy, cu, cv)
     assert _maxdiff(out.cpu().numpy(), ref.numpy()) <= 1

@@ -3,11 +3,14 @@ and MoonViT's RoPE of q and k) and the rule that picks them.
 
 On the CPU: a CPU call takes the plain version and launches nothing; a
 call that needs a gradient keeps the differentiable chain; the wrappers
-refuse what the kernels do not take before touching a device; a
-``counting`` context counts its own thread's launches only, and MoonViT
-reports its own; every C entry point of ``csrc/`` is bound with its
-parameter count; no kernel's name contains a fragment by which the
-benchmark picks attention kernels.
+refuse what the kernels do not take before touching a device; the one
+launcher of ``csrc/launch.py``, over a stand-in for the kernel library,
+passes the current stream last, counts each launch under its kernel's
+name in ``LAUNCHES`` and in the ``counting`` contexts of its own thread
+only, and raises a failed launch with the kernel's name and the error's
+text; MoonViT reports its own launches; every C entry point of
+``csrc/`` is bound with its parameter count; no kernel's name contains
+a fragment by which the benchmark picks attention kernels.
 
 On the card (``python -m pytest -m cuda tests/test_torch_layers_cuda.py``)
 each kernel against its plain version at the shapes the cells run, and
@@ -17,17 +20,19 @@ float16 stores within one unit in the last place (ulp) of the plain
 version's, float32 and float64 ones within 1e-5 of the largest value.
 """
 
+import contextlib
 import ctypes
 import math
 import pathlib
 import re
 import threading
+import types
 
 import pytest
 import torch
 import torch.nn.functional as F
 
-from videoprocessingframework_torch.csrc import build
+from videoprocessingframework_torch.csrc import build, launch
 from videoprocessingframework_torch.models import layers_cuda as lc
 from videoprocessingframework_torch.models import moonvit as mv
 from videoprocessingframework_torch.models.moonvit import (
@@ -52,6 +57,11 @@ def _plain_ln(x, w, b, eps, out_dtype):
                         eps).to(out_dtype)
 
 
+def _counts(**launched):
+    """``LAUNCHES``'s shape: every kernel at 0 but ``launched``."""
+    return {**dict.fromkeys(launch.LAUNCHES, 0), **launched}
+
+
 def _norm(dim, out_dtype, eps, seed=0, device="cpu"):
     g = torch.Generator().manual_seed(seed)
     m = LayerNorm(dim, out_dtype, eps)
@@ -68,14 +78,14 @@ def _norm(dim, out_dtype, eps, seed=0, device="cpu"):
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
     (torch.float32, torch.float32)], ids=["bf16-bf16", "bf16-f32", "f32-f32"])
 def test_cpu_call_takes_the_plain_version(dtype, out_dtype):
-    lc.reset_launches()
+    launch.reset_launches()
     m = _norm(384, out_dtype, 1e-6)
     x = torch.randn(2, 5, 384).to(dtype)
     with torch.no_grad():
         got = m(x)
     assert torch.equal(got, _plain_ln(x, m.weight, m.bias, 1e-6, out_dtype))
     assert got.dtype == out_dtype
-    assert lc.LAUNCHES == {"layer_norm": 0, "rope2d": 0}
+    assert launch.LAUNCHES == _counts()
 
 
 def test_gradient_equals_f_layer_norm():
@@ -110,7 +120,7 @@ def test_takes_kernel_refuses_cpu_tensors():
 
 
 def test_rope_qk_on_the_cpu_is_rope2d_of_q_and_k():
-    lc.reset_launches()
+    launch.reset_launches()
     g = torch.Generator().manual_seed(4)
     rows, cols, heads, hd = 3, 5, 4, 16
     qkv = torch.randn(2, rows * cols, 3, heads, hd, generator=g).bfloat16()
@@ -119,7 +129,7 @@ def test_rope_qk_on_the_cpu_is_rope2d_of_q_and_k():
         q, k = rope_qk(qkv, freqs)
     assert torch.equal(q, rope2d(qkv[:, :, 0], freqs))
     assert torch.equal(k, rope2d(qkv[:, :, 1], freqs))
-    assert lc.LAUNCHES["rope2d"] == 0
+    assert launch.LAUNCHES["rope2d"] == 0
 
 
 def _ln_args(**over):
@@ -169,24 +179,81 @@ def test_rope2d_wrapper_refuses(over, match):
         lc.rope2d(**_rope_args(**over))
 
 
-def test_counting_counts_its_own_context():
-    """A ``counting`` context counts the launches of its thread while it
-    is open, nested ones count into each open context, another thread's
-    count only in ``LAUNCHES``."""
-    lc.reset_launches()
-    with lc.counting() as outer:
-        lc._launched("layer_norm")
-        with lc.counting() as inner:
-            lc._launched("rope2d")
+class _Kernels:
+    """Stands in for the kernel library: each ``vpf_<name>`` records its
+    arguments and returns ``err``; the error's text is fixed."""
+
+    def __init__(self):
+        self.err = 0
+        self.calls = []
+
+    def vpf_cuda_error_string(self, err):
+        return b"a stand-in error"
+
+    def __getattr__(self, fn):
+        def call(*args):
+            self.calls.append((fn, args))
+            return self.err
+        return call
+
+
+@pytest.fixture
+def kernels(monkeypatch):
+    """:func:`launch.launch` over :class:`_Kernels`, on a stand-in current
+    stream whose handle is 77."""
+    lib = _Kernels()
+    monkeypatch.setattr(build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=77))
+    return lib
+
+
+@pytest.mark.parametrize("a,b", [
+    ("layer_norm", "rope2d"), ("fused_resize_csc", "csc_rgb_planar"),
+    ("fused_resize_csc_direct", "layer_norm")],
+    ids=["model-layer", "preprocess", "across-kinds"])
+def test_counting_counts_its_own_context(kernels, a, b):
+    """A launch calls ``vpf_<name>`` with the current stream last and
+    counts under its name: in ``LAUNCHES`` and in each ``counting``
+    context open in its thread (nested ones count into each); another
+    thread's launches count only in ``LAUNCHES``."""
+    cuda = torch.device("cuda")
+    launch.reset_launches()
+    with launch.counting() as outer:
+        launch.launch(a, cuda, 1, 2.5)
+        with launch.counting() as inner:
+            launch.launch(b, cuda)
             other = threading.Thread(
-                target=lambda: [lc._launched("layer_norm") for _ in range(5)])
+                target=lambda: [launch.launch(a, cuda) for _ in range(5)])
             other.start()
-            other.join()
-        lc._launched("rope2d")
-    lc._launched("layer_norm")  # after both closed
-    assert inner == {"layer_norm": 0, "rope2d": 1}
-    assert outer == {"layer_norm": 1, "rope2d": 2}
-    assert lc.LAUNCHES == {"layer_norm": 7, "rope2d": 2}
+            other.join(timeout=60)
+            assert not other.is_alive()
+        launch.launch(b, cuda)
+    launch.launch(a, cuda)  # after both closed
+    assert inner == _counts(**{b: 1})
+    assert outer == _counts(**{a: 1, b: 2})
+    assert launch.LAUNCHES == _counts(**{a: 7, b: 2})
+    fn, args = kernels.calls[0]
+    assert fn == f"vpf_{a}" and args[:-1] == (1, 2.5)
+    assert isinstance(args[-1], ctypes.c_void_p) and args[-1].value == 77
+    assert len(kernels.calls) == 9
+
+
+@pytest.mark.parametrize("name", list(launch.LAUNCHES))
+def test_failed_launch_raises_with_its_name(kernels, name):
+    """A nonzero return raises with the kernel's name, the CUDA error and
+    its text, and is not counted."""
+    kernels.err = 700
+    launch.reset_launches()
+    with launch.counting() as counts:
+        with pytest.raises(RuntimeError, match=(
+                rf"^{name} launch failed: CUDA error 700 "
+                r"\(a stand-in error\)$")):
+            launch.launch(name, torch.device("cuda"))
+    assert counts == _counts() and launch.LAUNCHES == _counts()
 
 
 def test_moonvit_reports_its_own_launches(monkeypatch):
@@ -199,14 +266,15 @@ def test_moonvit_reports_its_own_launches(monkeypatch):
         calls["n"] += 1
         if calls["n"] == 1:
             other = threading.Thread(
-                target=lambda: [lc._launched("layer_norm") for _ in range(5)])
+                target=lambda: [launch._count("layer_norm")
+                                for _ in range(5)])
             other.start()
             other.join()
-        lc._launched("layer_norm")
+        launch._count("layer_norm")
         return _plain_ln(x, weight, bias, eps, out_dtype)
 
     def rope(qkv, freqs):
-        lc._launched("rope2d")
+        launch._count("rope2d")
         return rope2d(qkv[:, :, 0], freqs), rope2d(qkv[:, :, 1], freqs)
 
     monkeypatch.setattr(lc, "takes_kernel", lambda *a: True)
@@ -216,12 +284,13 @@ def test_moonvit_reports_its_own_launches(monkeypatch):
     depth = 2
     m = mv.MoonViT(patch=2, dim=16, depth=depth, heads=2, mlp_dim=32,
                    pos_grid=(4, 4), out_dim=8, dtype=torch.float32).eval()
-    lc.reset_launches()
+    launch.reset_launches()
     with torch.no_grad():
         m(torch.rand(1, 8, 8, 3))
     s = m.vision_stats
     assert (s["norm_launches"], s["rope_launches"]) == (2 * depth + 2, depth)
-    assert lc.LAUNCHES == {"layer_norm": 2 * depth + 2 + 5, "rope2d": depth}
+    assert launch.LAUNCHES == _counts(layer_norm=2 * depth + 2 + 5,
+                                      rope2d=depth)
 
 
 def _sources():
@@ -343,10 +412,10 @@ def test_layer_norm_kernel_against_plain(cuda, case):
     # an offset and a scale a row, as a residual stream has
     x = (3.0 * torch.randn(*lead, d, device=cuda, generator=g)
          + torch.randn(*lead, 1, device=cuda, generator=g)).to(dt)
-    lc.reset_launches()
+    launch.reset_launches()
     with torch.no_grad():
         got = m(x)
-    assert lc.LAUNCHES["layer_norm"] == 1
+    assert launch.LAUNCHES["layer_norm"] == 1
     _assert_close(got, _plain_ln(x, m.weight, m.bias, eps, out_dt))
 
 
@@ -357,10 +426,10 @@ def test_layer_norm_kernel_on_class_token_rows(cuda):
     x = torch.randn(32, 197, 384, device=cuda).bfloat16()
     rows = x[:, 0]
     assert not rows.is_contiguous()
-    lc.reset_launches()
+    launch.reset_launches()
     with torch.no_grad():
         got = m(rows)
-    assert lc.LAUNCHES["layer_norm"] == 1
+    assert launch.LAUNCHES["layer_norm"] == 1
     _assert_close(got, _plain_ln(rows, m.weight, m.bias, 1e-6,
                                  torch.float32))
 
@@ -375,10 +444,10 @@ def test_layer_norm_kernel_on_any_view(cuda, view):
     x = base[:, 1:385] if view == "misaligned" else \
         base[:, :384].t().contiguous().t()
     assert not x.is_contiguous()
-    lc.reset_launches()
+    launch.reset_launches()
     with torch.no_grad():
         got = m(x)
-    assert lc.LAUNCHES["layer_norm"] == 1
+    assert launch.LAUNCHES["layer_norm"] == 1
     _assert_close(got, _plain_ln(x, m.weight, m.bias, 1e-5, torch.bfloat16))
 
 
@@ -386,9 +455,9 @@ def test_layer_norm_kernel_on_any_view(cuda, view):
 def test_grad_call_keeps_the_plain_chain_on_the_card(cuda):
     m = _norm(384, torch.float32, 1e-6, seed=8, device=cuda)
     x = torch.randn(16, 384, device=cuda).bfloat16()
-    lc.reset_launches()
+    launch.reset_launches()
     y = m(x)
-    assert lc.LAUNCHES["layer_norm"] == 0 and y.requires_grad
+    assert launch.LAUNCHES["layer_norm"] == 0 and y.requires_grad
     y.sum().backward()
     w = m.weight.detach().clone().requires_grad_(True)
     b = m.bias.detach().clone().requires_grad_(True)
@@ -419,10 +488,10 @@ def test_rope_kernel_against_plain(cuda, case):
     qkv = torch.randn(n, length, 3 * heads * hd, device=cuda,
                       generator=g).to(dt).view(n, length, 3, heads, hd)
     freqs = rope_freqs(grid, hd, 10000.0, cuda)
-    lc.reset_launches()
+    launch.reset_launches()
     with torch.no_grad():
         q, k = rope_qk(qkv, freqs)
-    assert lc.LAUNCHES["rope2d"] == 1
+    assert launch.LAUNCHES["rope2d"] == 1
     for i, got in enumerate((q, k)):
         _assert_close(got, rope2d(qkv[:, :, i], freqs))
         # the attention's input view keeps the plain version's strides

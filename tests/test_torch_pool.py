@@ -1,4 +1,5 @@
-"""The port's decode pool against the JAX package's, on the CPU."""
+"""The port's decode pool against the JAX package's, on the CPU; the
+seeded ring's batches on the CPU and on the card."""
 
 import numpy as np
 import pytest
@@ -7,6 +8,9 @@ import torch
 from videoprocessingframework_tpu.io import NativeDecodePool as JaxPool
 from videoprocessingframework_torch.core.enums import PixelFormat
 from videoprocessingframework_torch.io import HostBatchRing, NativeDecodePool
+
+#: the CPU, and the card where there is one (``-m cuda``)
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
 
 
 def _drain_planes(pool):
@@ -132,14 +136,21 @@ def test_early_close_of_native_pool_frees_slots(test_mp4):
     assert sum(p[0].shape[0] for p in rest) == 96 - 8 * 2
 
 
-def test_host_ring_batches_are_its_slots():
+@pytest.mark.parametrize("device", DEVICES)
+def test_host_ring_batches_are_its_slots(device):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
     ring = HostBatchRing(48, 16, batch_size=3, n_batches=2, n_buffers=2,
-                         seed=1, device="cpu")
+                         seed=1, device=device)
     got = list(ring.batches())
     for (y, u, v), slot in zip(got, ring._ring):
+        assert y.device.type == device
         flat = torch.from_numpy(slot)
-        np.testing.assert_array_equal(y.reshape(-1).numpy(),
+        np.testing.assert_array_equal(y.reshape(-1).cpu().numpy(),
                                       flat[: 3 * 16 * 48].numpy())
+        np.testing.assert_array_equal(
+            torch.cat([u.reshape(-1), v.reshape(-1)]).cpu().numpy(),
+            flat[3 * 16 * 48:].numpy())
         assert u.shape == v.shape == (3, 8, 24)
 
 

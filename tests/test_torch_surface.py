@@ -6,7 +6,8 @@
   their source: checked by writing in place after the copy.
 * ``surface_to_torch`` is zero copy; ``FrameUploader`` /
   ``SurfaceDownloader`` / ``DoubleBufferedUploader`` round trips on
-  ``device="cpu"``, byte-equal to the JAX package's.
+  ``device="cpu"`` and on the card (``-m cuda``), byte-equal to the JAX
+  package's.
 * Entry points default to CUDA and raise without a GPU.
 """
 
@@ -32,6 +33,8 @@ from videoprocessingframework_torch.utils import alloc
 
 F = PixelFormat
 W, H = 848, 464
+#: the CPU, and the card where there is one (``-m cuda``)
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
 FORMATS = [F.Y, F.NV12, F.YUV420, F.YUV422, F.YUV444, F.RGB, F.BGR,
            F.RGB_PLANAR, F.RGB_32F, F.RGB_32F_PLANAR, F.P10, F.P12,
            F.YUV444_10bit]
@@ -231,9 +234,12 @@ def test_torch_to_surface_views_and_copies():
 
 @pytest.mark.parametrize("fmt", [F.NV12, F.YUV420, F.P10, F.RGB_32F],
                          ids=lambda f: f.name)
-def test_uploader_downloader_roundtrip_matches_jax(fmt):
+@pytest.mark.parametrize("device", DEVICES)
+def test_uploader_downloader_roundtrip_matches_jax(fmt, device):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
     w, h = 64, 32
-    up = FrameUploader(w, h, fmt, device="cpu")
+    up = FrameUploader(w, h, fmt, device=device)
     down = SurfaceDownloader(w, h, fmt)
     jup = jtransfer.FrameUploader(w, h, JF(int(fmt)))
     jdown = jtransfer.SurfaceDownloader(w, h, JF(int(fmt)))
@@ -241,6 +247,7 @@ def test_uploader_downloader_roundtrip_matches_jax(fmt):
         frame = _frame(fmt, w, h, seed=seed)
         s = up.upload(frame)
         assert s.is_on_device and s.format == fmt
+        assert s.planes[0].device.type == device
         frame_before = frame.copy()
         s.planes[0].view(-1)[:4] = 0  # the upload copied the frame
         np.testing.assert_array_equal(frame, frame_before)
@@ -260,13 +267,16 @@ def test_downloader_checks_size():
         down.download(vpt.Surface.make(F.Y, 64, 32, device="cpu"))
 
 
+@pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("depth", [1, 2, 3])
-def test_double_buffered_uploader_order(depth):
+def test_double_buffered_uploader_order(depth, device):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
     r = np.random.default_rng(depth)
     batches = [(r.integers(0, 256, (2, 8, 16), np.uint8),
                 {"uv": r.integers(0, 256, (2, 4, 16), np.uint8)})
                for _ in range(5)]
-    up = DoubleBufferedUploader(device="cpu", depth=depth)
+    up = DoubleBufferedUploader(device=device, depth=depth)
     jup = jtransfer.DoubleBufferedUploader(depth=depth)
     got, want = [], []
     for i, b in enumerate(batches):
@@ -282,8 +292,8 @@ def test_double_buffered_uploader_order(depth):
     assert len(got) == len(want) == len(batches)
     for g, w, b in zip(got, want, batches):
         assert isinstance(g, tuple) and isinstance(g[1], dict)
-        assert g[0].dtype == torch.uint8
-        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w[0]))
-        np.testing.assert_array_equal(g[1]["uv"].numpy(), b[1]["uv"])
+        assert g[0].dtype == torch.uint8 and g[0].device.type == device
+        np.testing.assert_array_equal(g[0].cpu().numpy(), np.asarray(w[0]))
+        np.testing.assert_array_equal(g[1]["uv"].cpu().numpy(), b[1]["uv"])
         g[0][:] = 0  # a copy: the host batch is left alone
         assert b[0].any()

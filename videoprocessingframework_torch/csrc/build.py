@@ -80,7 +80,3 @@ def load_kernels() -> C.CDLL:
     lib.vpf_cuda_error_string.restype = C.c_char_p
     lib.vpf_cuda_error_string.argtypes = [i]
     return lib
-
-
-def error_string(err: int) -> str:
-    return load_kernels().vpf_cuda_error_string(err).decode()

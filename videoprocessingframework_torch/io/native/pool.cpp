@@ -82,7 +82,7 @@ struct Pool {
   // transfer-priority handshake: while paused, workers finish their
   // current frame then sleep — host→device transfers on 1-core hosts
   // are starved 15-100x by a concurrently-decoding worker (measured;
-  // see pool.py batches(transfer_priority=))
+  // see pool.py _RingFeed.batches)
   std::atomic<bool> paused{false};
   std::atomic<long> frames{0};
   std::atomic<long> dropped{0};  // zero-filled slots (copy_frame failures)

@@ -27,7 +27,7 @@ import torch
 
 from ..core import geometry
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
-from ..utils.device import resolve_device
+from ..utils.device import Staging, resolve_device, upload_ordered
 from ..utils.tracing import StageTimer
 
 
@@ -53,47 +53,32 @@ class _RingFeed:
         v = flat[cap * (ysz + csz): cap * (ysz + csz) + n * csz]
         return y, u, v.view(n, h // 2, w // 2)
 
-    def _upload(self, slot: np.ndarray, n: int, staging: dict):
-        """One batch onto the device as plane tensors. On CUDA: slot →
-        pinned staging buffer → one non-blocking H2D copy on the stage's
-        side stream, which the current stream then waits for; the stage's
-        ``done`` event (recorded by :meth:`batches` after the
-        post-processing) guards the staging buffer's reuse. Timed as the
-        ``wait``, ``stage`` and ``upload`` stages."""
+    def _upload(self, slot: np.ndarray, n: int, staging: Staging):
+        """One batch onto the device as plane tensors, through the stage's
+        :class:`Staging`: on CUDA, the slot → its pinned buffer → one
+        non-blocking H2D copy on its side stream, which the current
+        stream then waits for; the stage's ``done`` event (the barrier,
+        set by :meth:`batches` after the post-processing) guards the
+        pinned buffer's reuse. Timed as the ``wait``, ``stage`` and
+        ``upload`` stages; on the CPU the one clone is the ``stage``."""
         cap = self.batch_size
         timer = self.timer
         src = torch.from_numpy(slot)
-        if self.device.type == "cpu":
+        if staging.stream is None:
             # from_numpy aliases the ring slot: copy before it is released
             with timer.measure("stage"):
-                return self._split(src.clone(), n, cap)
-        buf, done = staging.get("buf"), staging.get("done")
-        if done is not None:
+                return self._split(staging.upload([src])[0], n, cap)
+        if staging.barrier is not None:
             with timer.measure("wait"):
-                done.synchronize()  # the last H2D from this buffer is over
-        if buf is None:
-            buf = torch.empty(src.numel(), dtype=torch.uint8, pin_memory=True)
-            staging["buf"] = buf
+                staging.wait()  # the last H2D from this buffer is over
         with timer.measure("stage"):
-            buf.copy_(src)
+            pinned = staging.stage([src])
         with timer.measure("upload"):
-            dev = torch.empty(src.numel(), dtype=torch.uint8,
-                              device=self.device)
-            copy_stream = staging["stream"]
-            copy_stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(copy_stream):
-                dev.copy_(buf, non_blocking=True)
-                uploaded = torch.cuda.Event()
-                uploaded.record(copy_stream)
-            torch.cuda.current_stream(self.device).wait_event(uploaded)
+            (dev,), _ = upload_ordered(pinned, self.device, staging.stream)
         return self._split(dev, n, cap)
 
-    def batches(
-        self,
-        postproc: Optional[Callable] = None,
-        depth: int = 2,
-        transfer_priority: Optional[bool] = None,
-    ) -> Iterator:
+    def batches(self, postproc: Optional[Callable] = None,
+                depth: int = 2) -> Iterator:
         """Yield post-processed device batches (or the device planes when
         ``postproc`` is None): ``postproc(y, u, v)`` for plane-major
         rings, ``postproc(packed)`` otherwise.
@@ -113,19 +98,15 @@ class _RingFeed:
         event after it); ``drain`` = blocked on the device until the
         oldest batch in flight is done.
 
-        ``transfer_priority`` (default: on only for 1-core hosts)
-        brackets each dispatch+drain window with :meth:`pause`, so decode
-        workers sleep while a transfer is in flight.
+        On a 1-core host each dispatch+drain window is bracketed with
+        :meth:`pause`, so the decode workers sleep while a transfer is in
+        flight.
         """
         depth = max(1, min(depth, self._n_buffers - 1))
-        if transfer_priority is None:
-            transfer_priority = (os.cpu_count() or 1) == 1
+        transfer_priority = (os.cpu_count() or 1) == 1
         self._set_worker_priority(transfer_priority)
         on_gpu = self.device.type == "cuda"
-        stages = [
-            {"stream": torch.cuda.Stream(self.device) if on_gpu else None}
-            for _ in range(depth)
-        ]
+        stages = [Staging(self.device) for _ in range(depth)]
         pending: list = []  # (out, done event | None) in dispatch order
 
         def drain_one():
@@ -159,7 +140,7 @@ class _RingFeed:
                                 done = torch.cuda.Event()
                                 done.record(
                                     torch.cuda.current_stream(self.device))
-                                staging["done"] = done
+                                staging.barrier = done
                     pending.append((out, done))
                     drained = drain_one() if len(pending) >= depth else None
                 finally:
@@ -255,7 +236,8 @@ class NativeDecodePool(_RingFeed):
     def pause(self, paused: bool = True) -> None:
         """Transfer-priority handshake: ``pause(True)`` puts the decode
         workers to sleep after their in-flight frame; ``pause(False)``
-        wakes them (see ``batches(transfer_priority=)``)."""
+        wakes them (:meth:`batches` brackets its transfers with it on a
+        1-core host)."""
         self._lib.vpf_pool_pause(self._h, 1 if paused else 0)
 
     def _set_worker_priority(self, idle: bool) -> None:

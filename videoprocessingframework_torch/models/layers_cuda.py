@@ -1,7 +1,6 @@
 """The model layer's hand-written CUDA kernels: LayerNorm
 (``csrc/layer_norm.cu``) and MoonViT's 2-D RoPE of the queries and keys
-(``csrc/rope2d.cu``), their wrappers, the rule that picks them, and a
-count of their launches.
+(``csrc/rope2d.cu``), their wrappers and the rule that picks them.
 
 Neither replaces a Pallas kernel: the JAX package leaves LayerNorm to
 XLA, which fuses it into one pass, and has no RoPE. The port's plain versions
@@ -21,55 +20,22 @@ stride and alignment. A call the kernel does not take (another dtype;
 for RoPE, a head_dim that is not a multiple of 4 or a misaligned view,
 which no MoonViT makes) raises.
 
-Counts: :data:`LAUNCHES` counts every launch in the process since the
-last :func:`reset_launches`; :func:`counting` counts those its own
-context makes (this thread's, or this asyncio task's), which is what a
-model reports of one call while others run beside it.
+The launches are made and counted by ``csrc/launch.py`` (``layer_norm``
+and ``rope2d``), whose :func:`~..csrc.launch.counting` MoonViT's
+``vision_stats`` read.
 """
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-import ctypes
-from typing import Dict, Iterator, Tuple
+from typing import Tuple
 
 import torch
 
-#: kernel launches since the last reset (see ops/fused_cuda.py)
-LAUNCHES: Dict[str, int] = {"layer_norm": 0, "rope2d": 0}
-
-#: the counts of the open :func:`counting` contexts, innermost last
-_COUNTING: contextvars.ContextVar[Tuple[Dict[str, int], ...]] = \
-    contextvars.ContextVar("layers_cuda_counting", default=())
+from ..csrc.launch import launch, ptr
 
 #: the kernels' dtype codes (``csrc/vec_io.cuh``)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
            torch.float64: 3}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-@contextlib.contextmanager
-def counting() -> Iterator[Dict[str, int]]:
-    """Yield a dict of launches by kernel that counts the ones made in
-    this context (its thread, or its asyncio task) until it closes; a
-    context opened inside it counts into both."""
-    counts = dict.fromkeys(LAUNCHES, 0)
-    token = _COUNTING.set(_COUNTING.get() + (counts,))
-    try:
-        yield counts
-    finally:
-        _COUNTING.reset(token)
-
-
-def _launched(kind: str) -> None:
-    LAUNCHES[kind] += 1
-    for counts in _COUNTING.get():
-        counts[kind] += 1
 
 
 def needs_grad(*tensors) -> bool:
@@ -99,18 +65,6 @@ def _aligned(n: int, *ints: int) -> bool:
     return all(i % n == 0 for i in ints)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _raise_on(err: int, name: str) -> None:
-    from ..csrc import build
-
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({build.error_string(err)})")
-
-
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float, out_dtype: torch.dtype) -> torch.Tensor:
     """LayerNorm of ``x`` (any leading shape) over its last dimension
@@ -118,8 +72,6 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     ``out_dtype``, contiguous. Rows may lie a stride apart (ViT's
     class-token rows ``x[:, 0]``); a strided last dimension is first
     copied contiguous, in ``x``'s dtype."""
-    from ..csrc import build
-
     d = x.shape[-1]
     xc, yc = _code(x.dtype), _code(out_dtype)
     g, b = weight.float().contiguous(), bias.float().contiguous()
@@ -134,14 +86,8 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         rows = rows.contiguous()
     # a single row's stride is free: pass the width
     rs = rows.stride(0) if rows.shape[0] > 1 else d
-    lib = build.load_kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vpf_layer_norm(
-            _ptr(rows), xc, rs, _ptr(out), yc, _ptr(g), _ptr(b),
-            rows.shape[0], d, float(eps), ctypes.c_void_p(stream))
-    _raise_on(err, "layer_norm")
-    _launched("layer_norm")
+    launch("layer_norm", x.device, ptr(rows), xc, rs, ptr(out), yc, ptr(g),
+           ptr(b), rows.shape[0], d, float(eps))
     return out
 
 
@@ -152,8 +98,6 @@ def rope2d(qkv: torch.Tensor, freqs: torch.Tensor
     head_dim/2) complex64: (q, k), each (N, L, heads, head_dim)
     contiguous in ``qkv``'s dtype, the layout
     :func:`~.moonvit.rope2d` returns. One launch for both."""
-    from ..csrc import build
-
     if qkv.dim() != 5 or qkv.shape[2] != 3:
         raise ValueError(f"expected (N, L, 3, heads, head_dim), got "
                          f"{tuple(qkv.shape)}")
@@ -183,12 +127,6 @@ def rope2d(qkv: torch.Tensor, freqs: torch.Tensor
                       device=qkv.device)
     if out.numel() == 0:
         return out[0], out[1]
-    lib = build.load_kernels()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vpf_rope2d(
-            _ptr(qkv), code, *strides, _ptr(table), _ptr(out), n, length,
-            heads, hd, vec, ctypes.c_void_p(stream))
-    _raise_on(err, "rope2d")
-    _launched("rope2d")
+    launch("rope2d", qkv.device, ptr(qkv), code, *strides, ptr(table),
+           ptr(out), n, length, heads, hd, vec)
     return out[0], out[1]

@@ -47,7 +47,7 @@ grid is not the table's) and ``attention_backend`` (the SDPA backend the
 first CUDA call took); and, set by each eager call or capture (a replay
 runs the captured launches again), ``norm_launches`` and
 ``rope_launches``, the LayerNorm and RoPE kernels that call launched
-(:func:`.layers_cuda.counting`, so not another thread's): 2·depth + 2 and
+(:func:`..csrc.launch.counting`, so not another thread's): 2·depth + 2 and
 depth on CUDA without gradients, 0 on the CPU.
 """
 
@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ..csrc import launch
 from ..utils.tracing import trace_range
 from . import layers_cuda
 from .graphed import GraphedModule
@@ -197,7 +198,7 @@ class MoonViT(GraphedModule):
         return super().forward(x)
 
     def _forward(self, x):
-        with layers_cuda.counting() as launched:
+        with launch.counting() as launched:
             out = self._encode(x)
         s = self.vision_stats
         s["norm_launches"] = launched["layer_norm"]

@@ -19,22 +19,14 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
+from ..csrc.launch import launch, ptr
 from . import colorspace as cs
 from .colorspace import f32
-
-#: kernel launches since the last reset (see ops/fused_cuda.py)
-LAUNCHES: Dict[str, int] = {"csc_rgb_planar": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def csc_cuda_supported(h: int, w: int) -> bool:
@@ -127,34 +119,20 @@ def _launch(y, c_ptrs, c_strides, step, *, space, rng, swap):
     """Launch the kernel on the current stream; chroma as base pointers
     (NV12: one, the interleaved plane) with (batch, row) strides in
     bytes."""
-    from ..csrc import build
-
     if not y.is_cuda:
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {y.device}")
     if y.stride(-1) != 1:
         raise ValueError("planes must be contiguous along their rows")
     b, h, w = y.shape
     vec = _vec(y, c_ptrs, c_strides, step)
-    lib = build.load_kernels()
     m, off = cs.rgb_from_ycbcr_f32(space, rng, swap)
     csc = (ctypes.c_float * 12)(*np.concatenate([m.ravel(), off]).tolist())
     out = torch.empty((b, 3, h, w), dtype=torch.uint8, device=y.device)
     if b == 0:
         return out
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    u_ptr, v_ptr = c_ptrs[0], c_ptrs[-1]
-    with torch.cuda.device(y.device):
-        err = lib.vpf_csc_rgb_planar(
-            ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(u_ptr),
-            ctypes.c_void_p(v_ptr), step, b, h, w, y.stride(0), y.stride(1),
-            c_strides[0], c_strides[1], ctypes.c_void_p(out.data_ptr()), vec,
-            csc, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"csc_rgb_planar launch failed: CUDA error {err} "
-            f"({build.error_string(err)})"
-        )
-    LAUNCHES["csc_rgb_planar"] += 1
+    launch("csc_rgb_planar", y.device, ptr(y), ctypes.c_void_p(c_ptrs[0]),
+           ctypes.c_void_p(c_ptrs[-1]), step, b, h, w, y.stride(0),
+           y.stride(1), c_strides[0], c_strides[1], ptr(out), vec, csc)
     return out
 
 

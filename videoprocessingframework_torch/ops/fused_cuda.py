@@ -32,29 +32,19 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Dict, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.enums import ColorRange, ColorSpace
+from ..csrc.launch import launch, ptr
 from . import colorspace as cs
 from .colorspace import f32
 from .resize import SUPPORTED, chroma_collapse, resize_matrix
 
 OUTPUTS = ("rgb_u8", "rgb_f32", "normalized")
 _MODE = {"rgb_u8": 0, "rgb_f32": 1, "normalized": 2}
-
-#: kernel launches since the last reset — a main-path run shows it went
-#: through the kernel by this count; comparison launches are excluded by
-#: the caller resetting the count around the run it measures
-LAUNCHES: Dict[str, int] = {"fused_resize_csc": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 # ---- tap tables --------------------------------------------------------------
 
@@ -491,10 +481,6 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _planar_chroma(y, u, v, output):
     _check(y, (u, v), 1, output)
     if u.stride() != v.stride():
@@ -537,9 +523,7 @@ def _launch(y, c_ptrs, step, cstrides, *, out_h, out_w, space, rng, method,
     """Launch the kernel on the current stream; chroma as two base
     pointers (NV12: the UV plane and one byte on) with (batch, row,
     element) strides in bytes. ``direct`` launches the first version
-    instead, which LAUNCHES does not count."""
-    from ..csrc import build
-
+    instead, counted under its own name."""
     if not y.is_cuda:
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {y.device}")
     b, h, w = y.shape
@@ -552,7 +536,6 @@ def _launch(y, c_ptrs, step, cstrides, *, out_h, out_w, space, rng, method,
         raise ValueError("planes must be contiguous along their rows")
     if not direct:
         plan = _plan(y, c_ptrs, step, cstrides, out_h, out_w, method)
-    lib = build.load_kernels()
     tabs = _device_tables(h, w, out_h, out_w, method, y.device)
     m, off, mean32, inv_std = _csc_consts(space, rng, swap, mean, std)
     csc = (ctypes.c_float * 18)(
@@ -562,28 +545,18 @@ def _launch(y, c_ptrs, step, cstrides, *, out_h, out_w, space, rng, method,
     out = torch.empty((b, 3, out_h, out_w), dtype=dtype, device=y.device)
     if b == 0:
         return out
-    stream = ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream)
-    args = [_ptr(y), ctypes.c_void_p(c_ptrs[0]), ctypes.c_void_p(c_ptrs[1]),
+    args = [ptr(y), ctypes.c_void_p(c_ptrs[0]), ctypes.c_void_p(c_ptrs[1]),
             step, b, y.stride(0), y.stride(1), cstrides[0], cstrides[1]]
     for k in ("rows_y", "rows_c", "cols_y", "cols_c"):
         s, wt, kk = tabs[k]
-        args += [_ptr(s), _ptr(wt), kk]
-    args += [_ptr(out), out_h, out_w, _MODE[output], csc]
-    with torch.cuda.device(y.device):
-        if direct:
-            err = lib.vpf_fused_resize_csc_direct(*args, stream)
-        else:
-            fields = (ctypes.c_int32 * len(PLAN_FIELDS))(*plan.fields())
-            err = lib.vpf_fused_resize_csc(
-                *args, fields, *map(_ptr, _device_plan(plan, y.device)),
-                stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_resize_csc{'_direct' if direct else ''} launch failed: "
-            f"CUDA error {err} ({build.error_string(err)})"
-        )
-    if not direct:
-        LAUNCHES["fused_resize_csc"] += 1
+        args += [ptr(s), ptr(wt), kk]
+    args += [ptr(out), out_h, out_w, _MODE[output], csc]
+    if direct:
+        launch("fused_resize_csc_direct", y.device, *args)
+    else:
+        fields = (ctypes.c_int32 * len(PLAN_FIELDS))(*plan.fields())
+        launch("fused_resize_csc", y.device, *args, fields,
+               *map(ptr, _device_plan(plan, y.device)))
     return out
 
 

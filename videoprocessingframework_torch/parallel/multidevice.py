@@ -25,7 +25,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..core.enums import PixelFormat
-from ..utils.device import upload
+from ..utils.device import Staging, upload
 from ..utils.tracing import StageTimer, trace_range
 from .mesh import (
     _tree_map,
@@ -137,9 +137,7 @@ class MultiDeviceStreamPipeline:
             max_frames_per_stream=max_frames_per_stream,
             n_buffers=self._held_max + 2, plane_major=self._planar,
             device=self.devices[0])
-        self._stages = [{"stream": torch.cuda.Stream(d)
-                         if d.type == "cuda" else None}
-                        for d in self.devices]
+        self._stages = [Staging(d) for d in self.devices]
         self.frames = 0
 
     def _stage(self, i: int, host: list) -> list:
@@ -148,17 +146,9 @@ class MultiDeviceStreamPipeline:
         device's current stream waits on the copy's event). The staging
         buffers are free again: this device's previous dispatch was
         retired before this one."""
-        dev, stage = self.devices[i], self._stages[i]
+        staging = self._stages[i]
         src = [torch.from_numpy(np.ascontiguousarray(h)) for h in host]
-        if dev.type != "cuda":
-            return upload(src, dev, None)[0]
-        bufs = stage.get("bufs")
-        if bufs is None or [b.shape for b in bufs] != [s.shape for s in src]:
-            bufs = stage["bufs"] = [torch.empty(s.shape, dtype=s.dtype,
-                                                pin_memory=True) for s in src]
-        for b, s in zip(bufs, src):
-            b.copy_(s)
-        return upload(bufs, dev, stage["stream"])[0]
+        return upload(staging.stage(src), staging.device, staging.stream)[0]
 
     def batches(self) -> Iterator:
         """Yield device batches. Up to one dispatch a device stays

@@ -30,7 +30,7 @@ import torch
 from ..core import geometry
 from ..core.enums import PixelFormat
 from ..io.decoder import VideoReader
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, upload_ordered
 from ..utils.tracing import StageTimer
 
 
@@ -247,20 +247,13 @@ class MultiStreamPipeline:
         (out, uploaded event, done event); the events are None on the CPU,
         where the batch is copied out of the ring buffer first."""
         with self.timer.measure("dispatch"):
-            if not self._on_gpu:
-                dev, uploaded = torch.from_numpy(host.copy()), None
-            else:
-                src = pinned if pinned is not None else (
-                    torch.from_numpy(host).pin_memory())
-                current = torch.cuda.current_stream(self.device)
-                dev = torch.empty(src.shape, dtype=torch.uint8,
-                                  device=self.device)
-                self._copy_stream.wait_stream(current)
-                with torch.cuda.stream(self._copy_stream):
-                    dev.copy_(src, non_blocking=True)
-                    uploaded = torch.cuda.Event()
-                    uploaded.record(self._copy_stream)
-                current.wait_event(uploaded)
+            src = pinned
+            if src is None:
+                src = torch.from_numpy(host)
+                if self._on_gpu:
+                    src = src.pin_memory()
+            (dev,), uploaded = upload_ordered([src], self.device,
+                                              self._copy_stream)
             out = self.postproc(dev) if self.postproc else dev
             done = None
             if self._on_gpu:

@@ -74,6 +74,11 @@ def upload(host: Sequence[torch.Tensor], device: torch.device,
     the copies DMA straight from them. Without a stream (the CPU) the
     tensors are cloned, since a ring of ``from_numpy`` views would alias
     them, and ``uploaded`` is None.
+
+    The loaders' discipline: the tensors are allocated on ``stream`` and
+    recorded as used by the current stream, and the copies do not wait
+    for the current stream's earlier work (:func:`upload_ordered` does).
+    Which of the two the ring feed should take is not measured yet.
     """
     if stream is None:
         return [h.clone() for h in host], None
@@ -89,3 +94,75 @@ def upload(host: Sequence[torch.Tensor], device: torch.device,
     for t in staged:
         t.record_stream(cur)
     return staged, uploaded
+
+
+def upload_ordered(host: Sequence[torch.Tensor], device: torch.device,
+                   stream: Optional["torch.cuda.Stream"]) -> tuple:
+    """:func:`upload` in the ring feed's discipline: each tensor is
+    allocated on the current stream, which frees it, and ``stream``
+    first waits for the current stream (so for the memory's earlier
+    users). The copies therefore queue behind work already on the
+    current stream and cannot overlap it."""
+    if stream is None:
+        return [h.clone() for h in host], None
+    current = torch.cuda.current_stream(device)
+    dev = [torch.empty(h.shape, dtype=h.dtype, device=device) for h in host]
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        for dst, src in zip(dev, host):
+            dst.copy_(src, non_blocking=True)
+        uploaded = torch.cuda.Event()
+        uploaded.record(stream)
+    current.wait_event(uploaded)
+    return dev, uploaded
+
+
+class Staging:
+    """Pinned host buffers that host data passes through on its way to
+    ``device`` (one a tensor), the side stream that copies them (from
+    PyTorch's stream pool), and the barrier event before which they are
+    not written again.
+
+    :meth:`stage` waits on :attr:`barrier`, reallocates a buffer only
+    where a tensor's shape or dtype changed, and copies the host tensors
+    in; :meth:`upload` stages, uploads in :func:`upload_ordered`'s
+    discipline and makes the copy's event the barrier. A caller may set
+    a later event as the barrier (the ring feed sets the one after its
+    post-processing). On the CPU nothing is pinned and there is no
+    stream: :meth:`stage` returns the host tensors, :meth:`upload` clones
+    them.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self.bufs: list = []
+        self.barrier: Optional["torch.cuda.Event"] = None
+
+    def wait(self) -> None:
+        """Block until the barrier has completed (the buffers are free)."""
+        if self.barrier is not None:
+            self.barrier.synchronize()
+            self.barrier = None
+
+    def stage(self, host: Sequence[torch.Tensor]) -> list:
+        """``host`` copied into the pinned buffers, once they are free."""
+        if self.stream is None:
+            return list(host)
+        self.wait()
+        if len(self.bufs) != len(host) or any(
+                b.shape != h.shape or b.dtype != h.dtype
+                for b, h in zip(self.bufs, host)):
+            self.bufs = [torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
+                         for h in host]
+        for buf, h in zip(self.bufs, host):
+            buf.copy_(h)
+        return self.bufs
+
+    def upload(self, host: Sequence[torch.Tensor]) -> list:
+        """``host`` on the device, ordered before later work on the
+        current stream."""
+        dev, self.barrier = upload_ordered(self.stage(host), self.device,
+                                           self.stream)
+        return dev
