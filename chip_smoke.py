@@ -763,7 +763,7 @@ def main_path(device, libav_missing: str, tmpdir: str) -> dict:
         fps = _throughput(f.batches(postproc, depth=2), consume)
         stages = ", ".join(f"{k} {v['mean_ms']:.2f}"
                            for k, v in f.timer.summary().items())
-        return fps, stages
+        return fps, stages, f.upload_stats
 
     with torch.no_grad():
         logits_seen = []
@@ -777,11 +777,16 @@ def main_path(device, libav_missing: str, tmpdir: str) -> dict:
             run(postproc, consume, 3)  # warm-up: allocations, cuDNN plans
             logits_seen.clear()
             counted = launch.LAUNCHES["fused_resize_csc"]
-            fps, st = run(postproc, consume, n_batches)
+            fps, st, up = run(postproc, consume, n_batches)
             launches = launch.LAUNCHES["fused_resize_csc"] - counted
             log(f"{src}->{name} fps: {fps:.1f} over {n_batches} batches of "
-                f"{BATCH} (per batch ms: {st}); fused_resize_csc launches "
-                f"in this run: {launches}")
+                f"{BATCH} (per batch ms: {st}); upload_stats {up}; "
+                f"fused_resize_csc launches in this run: {launches}")
+            # on the card, every batch copied straight from its
+            # page-locked slot
+            require(device.type != "cuda" or (up["direct"] == n_batches
+                                              and up["staged"] == 0),
+                    f"{src}->{name}: upload_stats {up}")
         require(launches >= n_batches, f"{launches} kernel launches")
 
         logits = torch.cat(logits_seen)

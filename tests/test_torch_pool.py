@@ -180,3 +180,232 @@ def test_pool_device_defaults_to_cuda(test_mp4, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         NativeDecodePool([test_mp4], batch_size=8)
+
+
+# --- where a batch's bytes come from: its page-locked slot or a pinned
+# staging buffer (``_RingFeed.upload_stats``)
+
+class _Cudart:
+    """A stand-in for ``torch.cuda.cudart()`` that answers every
+    ``cudaHostRegister`` with ``rc`` and logs the calls."""
+
+    def __init__(self, rc, real=None):
+        self.rc, self.real, self.log = rc, real, []
+
+    def cudaHostRegister(self, ptr, nbytes, flags):
+        self.log.append(("register", ptr, nbytes, flags))
+        return self.rc
+
+    def cudaHostUnregister(self, ptr):
+        self.log.append(("unregister", ptr))
+        return self.rc
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+class _Runtime:
+    """A stand-in for the CUDA runtime library: counts the clears of its
+    last error."""
+
+    def __init__(self):
+        self.cleared = 0
+
+    def cudaGetLastError(self):
+        self.cleared += 1
+        return 0
+
+
+def test_cpu_ring_counts_every_batch_staged():
+    ring = HostBatchRing(32, 16, batch_size=2, n_batches=5, n_buffers=3,
+                         seed=4, device="cpu")
+    assert len(list(ring.batches(lambda y, u, v: y.clone()))) == 5
+    assert ring.upload_stats == {"direct": 0, "staged": 5, "registered": 0,
+                                 "register_s": 0.0}
+    assert "register" not in ring.timer.counts
+
+
+@pytest.mark.parametrize("rc, pinned, want, cleared", [
+    (0, False, True, 0),      # locked by this call: the caller unlocks it
+    (2, False, None, 1),      # refused (out of memory): stays pageable
+    (712, True, False, 1),    # locked already, first and last byte
+    (712, False, None, 1),    # part of it locked by someone else
+], ids=["locked", "refused", "already-locked", "partly-locked"])
+def test_page_lock_answers_and_clears_a_refusal(monkeypatch, rc, pinned,
+                                                want, cleared):
+    from videoprocessingframework_torch.utils import device as dev_mod
+
+    cudart, runtime = _Cudart(rc), _Runtime()
+    monkeypatch.setattr(torch.cuda, "cudart", lambda: cudart)
+    monkeypatch.setattr(dev_mod, "_cuda_runtime", lambda: runtime)
+    monkeypatch.setattr(torch.Tensor, "is_pinned", lambda self: pinned)
+    host = torch.zeros(1000, dtype=torch.uint8)
+    assert dev_mod.page_lock(host) is want
+    assert cudart.log == [("register", host.data_ptr(), 1000, 0)]
+    # a refusal is the runtime's last error, which the next kernel launch
+    # check would raise: it is cleared at once
+    assert runtime.cleared == cleared
+
+
+def test_page_lock_without_the_runtime_leaves_memory_pageable(monkeypatch):
+    from videoprocessingframework_torch.utils import device as dev_mod
+
+    cudart = _Cudart(0)
+    monkeypatch.setattr(torch.cuda, "cudart", lambda: cudart)
+    monkeypatch.setattr(dev_mod, "_cuda_runtime", lambda: None)
+    assert dev_mod.page_lock(torch.zeros(8, dtype=torch.uint8)) is None
+    assert cudart.log == []
+
+
+@pytest.mark.parametrize("rc, cleared", [(0, 0), (713, 1)],
+                         ids=["unlocked", "no-longer-held"])
+def test_page_unlock_tolerates_a_range_no_longer_held(monkeypatch, rc,
+                                                      cleared):
+    from videoprocessingframework_torch.utils import device as dev_mod
+
+    cudart, runtime = _Cudart(rc), _Runtime()
+    monkeypatch.setattr(torch.cuda, "cudart", lambda: cudart)
+    monkeypatch.setattr(dev_mod, "_cuda_runtime", lambda: runtime)
+    dev_mod.page_unlock(12345)
+    assert cudart.log == [("unregister", 12345)]
+    assert runtime.cleared == cleared
+
+
+def test_slot_locks_lock_each_slot_once_and_unlock_only_their_own(
+        monkeypatch):
+    from videoprocessingframework_torch.io import pool as pool_mod
+    from videoprocessingframework_torch.utils.tracing import StageTimer
+
+    ring = HostBatchRing(32, 16, batch_size=2, n_batches=0, n_buffers=3,
+                         device="cpu")
+    ptrs = [s.ctypes.data for s in ring._ring]
+    # slot 0 locked here, slot 1 refused, slot 2 locked by another owner
+    answers = dict(zip(ptrs, [True, None, False]))
+    calls, unlocked = [], []
+
+    def lock(t):
+        calls.append(t.data_ptr())
+        return answers[t.data_ptr()]
+
+    monkeypatch.setattr(pool_mod, "page_lock", lock)
+    monkeypatch.setattr(pool_mod, "page_unlock", unlocked.append)
+    timer = StageTimer("feed")
+    locks = pool_mod._SlotLocks(timer)
+    got = [locks.direct_from(s) for s in ring._ring * 2]
+    assert got == [True, False, True] * 2
+    assert calls == ptrs  # once a slot
+    assert locks.stats["registered"] == 1
+    assert locks.stats["register_s"] > 0
+    assert timer.counts == {"register": 3}
+    locks.unlock()
+    assert unlocked == ptrs[:1]
+    locks.unlock()
+    assert unlocked == ptrs[:1]
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _pinned(slot) -> bool:
+    return torch.from_numpy(slot).is_pinned()
+
+
+def _host_planes(batches):
+    return [tuple(p.cpu() for p in b) for b in batches]
+
+
+@pytest.mark.cuda
+def test_cuda_ring_dmas_every_batch_from_its_slots(monkeypatch):
+    dev = _cuda()
+    ring = HostBatchRing(256, 128, batch_size=4, n_batches=7, n_buffers=3,
+                         seed=5, device=dev)
+    direct = _host_planes(ring.batches(depth=2))
+    assert ring.upload_stats["direct"] == 7
+    assert ring.upload_stats["staged"] == 0
+    assert ring.upload_stats["registered"] == 3
+    assert not any(_pinned(s) for s in ring._ring)  # unlocked at the end
+    # registration refused: the same ring through the staged path gives
+    # byte-equal batches
+    refusing = _Cudart(2, torch.cuda.cudart())
+    monkeypatch.setattr(torch.cuda, "cudart", lambda: refusing)
+    staged = _host_planes(ring.rewind(7).batches(depth=2))
+    stats = ring.upload_stats
+    assert (stats["direct"], stats["staged"], stats["registered"]) == \
+        (0, 7, 0)
+    assert [c[0] for c in refusing.log] == ["register"] * 3
+    for a, b in zip(direct, staged):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    # a refusal left no error behind for the next kernel launch
+    assert float((torch.ones(4, device=dev) * 2).sum()) == 8.0
+
+
+@pytest.mark.cuda
+def test_cuda_ring_unlocks_its_slots_on_early_close():
+    dev = _cuda()
+    ring = HostBatchRing(256, 128, batch_size=4, n_batches=9, n_buffers=4,
+                         seed=6, device=dev)
+    gen = ring.batches(lambda y, u, v: y.float().mean(), depth=3)
+    next(gen)
+    # three batches dispatched so far: three slots locked
+    assert [_pinned(s) for s in ring._ring] == [True] * 3 + [False]
+    gen.close()
+    assert ring.held == 0
+    assert not any(_pinned(s) for s in ring._ring)
+    assert ring.upload_stats["registered"] == 3
+
+
+@pytest.mark.cuda
+def test_cuda_second_generator_leaves_the_first_ones_locks():
+    dev = _cuda()
+    ring = HostBatchRing(256, 128, batch_size=4, n_batches=12, n_buffers=3,
+                         seed=7, device=dev)
+    first = ring.batches(lambda y, u, v: y.clone(), depth=1)
+    want = [next(first) for _ in range(3)]  # locks slots 0-2
+    second = ring.batches(lambda y, u, v: y.clone(), depth=1)
+    got = next(second)  # slot 0 again: locked already
+    assert torch.equal(got, want[0])
+    stats = ring.upload_stats
+    assert (stats["direct"], stats["registered"]) == (1, 0)
+    second.close()
+    assert all(_pinned(s) for s in ring._ring)  # the first one's locks
+    first.close()
+    assert not any(_pinned(s) for s in ring._ring)
+    assert float((torch.ones(4, device=dev) * 2).sum()) == 8.0
+
+
+class _Overwriting(HostBatchRing):
+    """A ring whose decode workers refill a slot the moment it is
+    released."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.order = []
+
+    def _acquire_raw(self):
+        k = self._next
+        slot, n = super()._acquire_raw()
+        if slot is not None:
+            self.order.append(k)
+        return slot, n
+
+    def release(self):
+        self._ring[self.order.pop(0)][:] = 0
+        super().release()
+
+
+@pytest.mark.cuda
+def test_cuda_slot_written_over_after_release_leaves_yielded_batches():
+    dev = _cuda()
+    ring = _Overwriting(256, 128, batch_size=4, n_batches=4, n_buffers=4,
+                        seed=8, device=dev)
+    want = [torch.from_numpy(s.copy()) for s in ring._ring]
+    got = [torch.cat([p.reshape(-1) for p in b]).cpu()
+           for b in ring.batches(depth=2)]
+    assert ring.upload_stats["direct"] == 4
+    assert not any(s.any() for s in ring._ring)  # every slot overwritten
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -212,12 +212,13 @@ def test_cuda_ring_fills_its_stage_set():
     with _cpu_profile() as prof:
         _ring_batches(ring, 6)
     t = ring.timer
-    assert set(t.summary()) == {"acquire", "dispatch", "wait", "stage",
-                                "upload", "postproc", "drain"}
-    # depth 2: the first two batches find their staging buffer unused
-    assert t.counts["wait"] == 4
-    assert all(t.counts[k] == 6 for k in ("dispatch", "stage", "upload",
-                                          "postproc", "drain"))
+    # each slot is page-locked once and copied from in place: no staging
+    # buffer to wait for or fill
+    assert set(t.summary()) == {"acquire", "dispatch", "register", "upload",
+                                "postproc", "drain"}
+    assert t.counts["register"] == 4
+    assert all(t.counts[k] == 6 for k in ("dispatch", "upload", "postproc",
+                                          "drain"))
     spans = _spans(prof)
     for d in (s for s in spans if s[0] == "feed.dispatch"):
         inner = [s for s in spans if s is not d and _inside(s, d)]

@@ -7,19 +7,25 @@ batches (zero-copy views into the pool's ring), uploads each batch with
 ONE host→device copy, runs the post-processing on the device and releases
 the ring slot once the device is done with it.
 
-Upload path (:meth:`_RingFeed.batches`): the ring slot is copied into a
-pinned staging buffer, then copied to the device with a non-blocking copy
-on a side stream, and an event is recorded after it. The consumer stream
-waits on that event before the post-processing, and a second event after
-the post-processing is the barrier before the slot (and the staging
-buffer) is reused. On the CPU the batch is copied out of the ring before
-anything else, since ``torch.from_numpy`` aliases the slot.
+Upload path (:meth:`_RingFeed.batches`): the first time a generator
+sees a ring slot it page-locks the slot's memory in place
+(``cudaHostRegister``), and each batch is then one non-blocking copy
+straight from its slot on a side stream, which does not wait for the
+device's earlier work, so it runs under the previous batch's model. The
+consumer stream waits on the copy's event before the post-processing,
+and a second event after the post-processing is the barrier before the
+slot is released to the decode workers. A slot that cannot be
+page-locked goes through a pinned staging buffer instead, copied in by
+the host and uploaded behind the consumer stream's earlier work. On the
+CPU the batch is copied out of the ring before anything else, since
+``torch.from_numpy`` aliases the slot.
 """
 
 from __future__ import annotations
 
 import ctypes as C
 import os
+import time
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
@@ -27,8 +33,53 @@ import torch
 
 from ..core import geometry
 from ..core.enums import ColorRange, ColorSpace, PixelFormat
-from ..utils.device import Staging, resolve_device, upload_ordered
+from ..utils.device import (
+    Staging,
+    page_lock,
+    page_unlock,
+    resolve_device,
+    upload,
+    upload_ordered,
+)
 from ..utils.tracing import StageTimer
+
+
+class _SlotLocks:
+    """The ring slots one :meth:`_RingFeed.batches` generator has seen,
+    keyed by address and size: whether each is copied to the device
+    straight from its own page-locked memory, the addresses this
+    generator locked (:meth:`unlock` unlocks them), and its
+    ``upload_stats``."""
+
+    def __init__(self, timer: StageTimer):
+        self.timer = timer
+        self.direct: dict = {}
+        self.owned: list = []
+        self.stats = {"direct": 0, "staged": 0, "registered": 0,
+                      "register_s": 0.0}
+
+    def direct_from(self, slot: np.ndarray) -> bool:
+        """Whether ``slot`` is copied straight from its memory: locked the
+        first time it is seen (the ``register`` stage), or locked already
+        by another owner; False where the runtime refused."""
+        key = (slot.ctypes.data, slot.nbytes)
+        if key not in self.direct:
+            t0 = time.perf_counter()
+            with self.timer.measure("register"):
+                got = page_lock(torch.from_numpy(slot))
+            self.stats["register_s"] += time.perf_counter() - t0
+            if got:
+                self.owned.append(key[0])
+                self.stats["registered"] += 1
+            self.direct[key] = got is not None
+        return self.direct[key]
+
+    def unlock(self) -> None:
+        """Unlock the slots this generator locked; call it once no copy
+        from them is in flight."""
+        for ptr in self.owned:
+            page_unlock(ptr)
+        self.owned.clear()
 
 
 class _RingFeed:
@@ -39,6 +90,12 @@ class _RingFeed:
     ``plane_major``, ``frame_bytes``, ``device``, ``timer``,
     ``_n_buffers``, ``_acquire_raw() -> (numpy uint8 view of the whole
     slot, frame count) | (None, 0)``, ``release()`` and ``pause()``.
+
+    :attr:`upload_stats` counts the running (or last) generator's
+    uploads: ``direct`` batches copied from their page-locked slot,
+    ``staged`` batches through a pinned staging buffer (every batch on
+    the CPU), ``registered`` slots it page-locked and ``register_s`` the
+    seconds that took.
     """
 
     def _split(self, flat: torch.Tensor, n: int, cap: int):
@@ -53,17 +110,25 @@ class _RingFeed:
         v = flat[cap * (ysz + csz): cap * (ysz + csz) + n * csz]
         return y, u, v.view(n, h // 2, w // 2)
 
-    def _upload(self, slot: np.ndarray, n: int, staging: Staging):
-        """One batch onto the device as plane tensors, through the stage's
-        :class:`Staging`: on CUDA, the slot → its pinned buffer → one
-        non-blocking H2D copy on its side stream, which the current
-        stream then waits for; the stage's ``done`` event (the barrier,
-        set by :meth:`batches` after the post-processing) guards the
-        pinned buffer's reuse. Timed as the ``wait``, ``stage`` and
-        ``upload`` stages; on the CPU the one clone is the ``stage``."""
+    def _upload(self, slot: np.ndarray, n: int, staging: Staging,
+                direct: bool):
+        """One batch onto the device as plane tensors. ``direct`` (a
+        page-locked slot): one non-blocking H2D copy from the slot on the
+        stage's side stream, in :func:`upload`'s discipline, timed as the
+        ``upload`` stage. Otherwise through the stage's :class:`Staging`:
+        the slot → its pinned buffer → one H2D copy behind the current
+        stream's work, which then waits for it; the stage's ``done``
+        event (the barrier, set by :meth:`batches` after the
+        post-processing) guards the pinned buffer's reuse. Timed as the
+        ``wait``, ``stage`` and ``upload`` stages; on the CPU the one
+        clone is the ``stage``."""
         cap = self.batch_size
         timer = self.timer
         src = torch.from_numpy(slot)
+        if direct:
+            with timer.measure("upload"):
+                (dev,), _ = upload([src], self.device, staging.stream)
+            return self._split(dev, n, cap)
         if staging.stream is None:
             # from_numpy aliases the ring slot: copy before it is released
             with timer.measure("stage"):
@@ -90,13 +155,20 @@ class _RingFeed:
 
         Stages of ``self.timer`` (each also the span ``feed.<stage>``):
         ``acquire`` = waiting on the decode workers; ``dispatch`` = the
-        batch's whole enqueue, made of ``wait`` (blocked on the device
-        until the staging buffer is free; CUDA only), ``stage`` (the
-        slot's copy into the pinned buffer, a clone on the CPU),
-        ``upload`` (the H2D enqueue on the side stream and its events;
-        CUDA only) and ``postproc`` (the post-processing call and the
-        event after it); ``drain`` = blocked on the device until the
-        oldest batch in flight is done.
+        batch's whole enqueue, made of ``register`` (page-locking a slot
+        seen for the first time; CUDA only), ``upload`` (the H2D enqueue
+        on the side stream and its events; CUDA only) and ``postproc``
+        (the post-processing call and the event after it), and, for a
+        slot that could not be page-locked, ``wait`` (blocked on the
+        device until the staging buffer is free) and ``stage`` (the
+        slot's copy into the pinned buffer); on the CPU ``stage`` is the
+        clone; ``drain`` = blocked on the device until the oldest batch
+        in flight is done.
+
+        The slots this generator page-locked are unlocked when it ends
+        or is closed, once the device has finished with them. A slot is
+        released only after its batch's ``done`` event, which follows the
+        H2D copy, so no copy reads a slot the decode workers refill.
 
         On a 1-core host each dispatch+drain window is bracketed with
         :meth:`pause`, so the decode workers sleep while a transfer is in
@@ -108,6 +180,8 @@ class _RingFeed:
         on_gpu = self.device.type == "cuda"
         stages = [Staging(self.device) for _ in range(depth)]
         pending: list = []  # (out, done event | None) in dispatch order
+        locks = _SlotLocks(self.timer)
+        self.upload_stats = stats = locks.stats
 
         def drain_one():
             out, done = pending[0]
@@ -131,7 +205,9 @@ class _RingFeed:
                     with self.timer.measure("dispatch"):
                         staging = stages[k % depth]
                         k += 1
-                        planes = self._upload(slot, n, staging)
+                        direct = on_gpu and locks.direct_from(slot)
+                        stats["direct" if direct else "staged"] += 1
+                        planes = self._upload(slot, n, staging, direct)
                         with self.timer.measure("postproc"):
                             out = (planes if postproc is None
                                    else postproc(*planes))
@@ -158,6 +234,10 @@ class _RingFeed:
                     done.synchronize()
                 self.release()
             pending.clear()
+            if locks.owned:
+                for st in stages:
+                    st.stream.synchronize()  # no copy still reads a slot
+                locks.unlock()
 
     def acquire_planes(self):
         """Next batch of a plane-major ring as zero-copy contiguous

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import ctypes
 import sys
 from typing import Optional, Sequence
 
@@ -77,8 +78,11 @@ def upload(host: Sequence[torch.Tensor], device: torch.device,
 
     The loaders' discipline: the tensors are allocated on ``stream`` and
     recorded as used by the current stream, and the copies do not wait
-    for the current stream's earlier work (:func:`upload_ordered` does).
-    Which of the two the ring feed should take is not measured yet.
+    for the current stream's earlier work (:func:`upload_ordered` does),
+    so a copy runs while the device computes on earlier batches. The
+    ring feed takes it for the slots it copies in place from their
+    page-locked memory (:func:`page_lock`); its staged fallback keeps
+    :func:`upload_ordered`.
     """
     if stream is None:
         return [h.clone() for h in host], None
@@ -98,11 +102,12 @@ def upload(host: Sequence[torch.Tensor], device: torch.device,
 
 def upload_ordered(host: Sequence[torch.Tensor], device: torch.device,
                    stream: Optional["torch.cuda.Stream"]) -> tuple:
-    """:func:`upload` in the ring feed's discipline: each tensor is
-    allocated on the current stream, which frees it, and ``stream``
-    first waits for the current stream (so for the memory's earlier
-    users). The copies therefore queue behind work already on the
-    current stream and cannot overlap it."""
+    """:func:`upload` in the staging uploaders' discipline (and the ring
+    feed's for a slot it could not page-lock): each tensor is allocated
+    on the current stream, which frees it, and ``stream`` first waits
+    for the current stream (so for the memory's earlier users). The
+    copies therefore queue behind work already on the current stream
+    and cannot overlap it."""
     if stream is None:
         return [h.clone() for h in host], None
     current = torch.cuda.current_stream(device)
@@ -115,6 +120,56 @@ def upload_ordered(host: Sequence[torch.Tensor], device: torch.device,
         uploaded.record(stream)
     current.wait_event(uploaded)
     return dev, uploaded
+
+
+#: ``cudaErrorHostMemoryAlreadyRegistered``
+_ALREADY_REGISTERED = 712
+
+
+def _cuda_runtime():
+    """The CUDA runtime library that PyTorch loaded, found in the
+    process's global symbols, or None where it is not there."""
+    try:
+        lib = ctypes.CDLL(None)
+        get_last_error = lib.cudaGetLastError
+    except (OSError, AttributeError):
+        return None
+    get_last_error.argtypes = []
+    get_last_error.restype = ctypes.c_int
+    return lib
+
+
+def page_lock(host: torch.Tensor) -> Optional[bool]:
+    """Page-lock the memory of ``host`` (a flat CPU tensor) in place
+    (``cudaHostRegister``), so that a non-blocking copy from it is one
+    DMA that the host does not wait for.
+
+    True: this call locked it; the caller unlocks it with
+    :func:`page_unlock` before the memory is freed, and after the last
+    copy from it. False: the whole range was locked already by another
+    owner, who unlocks it. None: it stays pageable (the runtime refused,
+    or PyTorch's runtime is not reachable to clear the refusal, which a
+    later kernel launch check would raise otherwise).
+    """
+    runtime = _cuda_runtime()
+    if runtime is None:
+        return None
+    rc = int(torch.cuda.cudart().cudaHostRegister(
+        host.data_ptr(), host.numel() * host.element_size(), 0))
+    if rc == 0:
+        return True
+    runtime.cudaGetLastError()
+    if rc == _ALREADY_REGISTERED and host[:1].is_pinned() \
+            and host[-1:].is_pinned():
+        return False
+    return None
+
+
+def page_unlock(ptr: int) -> None:
+    """Undo a :func:`page_lock` of the memory at ``ptr``. A range the
+    runtime no longer holds is left as it is."""
+    if int(torch.cuda.cudart().cudaHostUnregister(ptr)):
+        _cuda_runtime().cudaGetLastError()
 
 
 class Staging:

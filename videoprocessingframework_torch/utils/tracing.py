@@ -20,8 +20,9 @@ flag check on top of its NVTX push and pop, and never enters
 Spans at the feed's and the model's boundaries:
 
 * :class:`StageTimer` ``measure(stage)`` opens ``<prefix>.<stage>``: the
-  ring feed's ``feed.acquire``, ``feed.dispatch`` (with ``feed.wait``,
-  ``feed.stage``, ``feed.upload`` and ``feed.postproc`` nested in it) and
+  ring feed's ``feed.acquire``, ``feed.dispatch`` (with ``feed.register``,
+  ``feed.wait``, ``feed.stage``, ``feed.upload`` and ``feed.postproc``
+  nested in it) and
   ``feed.drain`` (``io/pool.py``); ``streams.*``, ``multidevice.*``,
   ``loader.*`` and ``transcode.*`` in the other pipelines;
 * ``model.forward`` around the forward of ``ResNet`` and ``ViT``
